@@ -1,0 +1,118 @@
+"""The classic NeRF MLP as an ``nn.Module``; counterpart of ``nerf_tpu/models/nerf_mlp.py``.
+
+8x256 ``pts_linears`` with the embedded input concatenated after layer 4's
+ReLU, and the view-direction head (alpha_linear 256->1, feature_linear
+256->256, views_linears [256+27 -> 128], rgb_linear 128->3). The output is
+[rgb_raw(3), sigma_raw(1)].
+
+The layers are ``nn.Linear`` (weights [out, in]). The bridge to the JAX
+layout ([in, out], ``to_tree``/``from_tree``) transposes.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+Tree = Dict[str, Any]
+
+
+def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> nn.Linear:
+    """nn.Linear with the U(-1/sqrt(fan_in), 1/sqrt(fan_in)) init of both
+    weight and bias (torch's default, and ``nerf_tpu``'s), drawn from an
+    explicit generator."""
+    layer = nn.Linear(fan_in, fan_out)
+    bound = 1.0 / fan_in ** 0.5
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+        layer.bias.uniform_(-bound, bound, generator=generator)
+    return layer
+
+
+def dense(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+          compute_dtype: torch.dtype) -> torch.Tensor:
+    """``h @ weight.T + bias`` with operands rounded to ``compute_dtype`` and
+    the products summed in float32 (bf16 products are exact in float32)."""
+    return F.linear(h.to(compute_dtype).float(), weight.to(compute_dtype).float()) + bias.float()
+
+
+class NeRFMLP(nn.Module):
+    def __init__(self, D: int = 8, W: int = 256, input_ch: int = 63,
+                 input_ch_views: int = 27, skips: Sequence[int] = (4,),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_ch = input_ch
+        self.skips = tuple(skips)
+        layers = []
+        in_dim = input_ch
+        for i in range(D):
+            layers.append(_linear(in_dim, W, generator))
+            in_dim = W + input_ch if i in self.skips else W
+        self.pts_linears = nn.ModuleList(layers)
+        self.feature_linear = _linear(W, W, generator)
+        self.alpha_linear = _linear(W, 1, generator)
+        self.views_linears = nn.ModuleList([_linear(input_ch_views + W, W // 2, generator)])
+        self.rgb_linear = _linear(W // 2, 3, generator)
+
+    def forward(self, x: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """x: [..., input_ch + input_ch_views] -> [..., 4] float32 (plain
+        reference of ``apply_nerf_mlp``)."""
+        def lin(layer, h):
+            return dense(h, layer.weight, layer.bias, compute_dtype)
+
+        input_pts = x[..., : self.input_ch]
+        input_views = x[..., self.input_ch:]
+        h = input_pts
+        for i, layer in enumerate(self.pts_linears):
+            h = torch.relu(lin(layer, h))
+            if i in self.skips:
+                h = torch.cat([input_pts, h], dim=-1)
+        alpha = lin(self.alpha_linear, h)
+        h = torch.cat([lin(self.feature_linear, h), input_views], dim=-1)
+        for layer in self.views_linears:
+            h = torch.relu(lin(layer, h))
+        return torch.cat([lin(self.rgb_linear, h), alpha], dim=-1)
+
+    def to_tree(self) -> Tree:
+        """The JAX params pytree layout: {name: {"w": [in, out], "b": [out]}}."""
+        def t(layer):
+            return {"w": layer.weight.detach().t(), "b": layer.bias.detach()}
+
+        return {
+            "pts_linears": [t(l) for l in self.pts_linears],
+            "feature_linear": t(self.feature_linear),
+            "alpha_linear": t(self.alpha_linear),
+            "views_linears": [t(l) for l in self.views_linears],
+            "rgb_linear": t(self.rgb_linear),
+        }
+
+    @classmethod
+    def from_tree(cls, tree: Mapping[str, Any], skips: Sequence[int] = (4,)) -> "NeRFMLP":
+        """Build from a JAX-layout pytree of arrays (numpy or tensors)."""
+        pts = tree["pts_linears"]
+        W = np.shape(pts[0]["w"])[1]
+        input_ch = np.shape(pts[0]["w"])[0]
+        input_ch_views = np.shape(tree["views_linears"][0]["w"])[0] - W
+        model = cls(D=len(pts), W=W, input_ch=input_ch,
+                    input_ch_views=input_ch_views, skips=skips)
+
+        def load(layer, leaf):
+            w = torch.tensor(np.asarray(leaf["w"], np.float32))
+            b = torch.tensor(np.asarray(leaf["b"], np.float32))
+            if tuple(w.shape) != (layer.in_features, layer.out_features):
+                raise ValueError(f"weight shape {tuple(w.shape)} does not fit "
+                                 f"({layer.in_features}, {layer.out_features})")
+            with torch.no_grad():
+                layer.weight.copy_(w.t())
+                layer.bias.copy_(b.reshape(-1))
+
+        for layer, leaf in zip(model.pts_linears, pts):
+            load(layer, leaf)
+        for name in ("feature_linear", "alpha_linear", "rgb_linear"):
+            load(getattr(model, name), tree[name])
+        for layer, leaf in zip(model.views_linears, tree["views_linears"]):
+            load(layer, leaf)
+        return model
