@@ -90,8 +90,10 @@ def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 
     nx, nd = d * xyz_freqs, d * dir_freqs
     pl_ = params["pts_linears"]
 
-    def f32(x):
-        return torch.as_tensor(x).detach().float()
+    def f32(x):  # numpy leaves are copied: they may be read-only views
+        if isinstance(x, torch.Tensor):
+            return x.detach().float()
+        return torch.from_numpy(np.array(x, np.float32))
 
     def wd(x):
         return f32(x).to(weight_dtype)
@@ -133,10 +135,14 @@ def _phases(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 
 
 def fused_nerf_eval_plain(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
-                          dirs: torch.Tensor) -> torch.Tensor:
-    """The kernel's math in plain PyTorch. pts, dirs: [P, 3] -> raw [P, 4] f32."""
+                          dirs: torch.Tensor, accumulate: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """The kernel's math in plain PyTorch. pts, dirs: [P, 3] -> raw [P, 4] f32.
+    Each product rounds its activations to the weights' dtype and sums in
+    ``accumulate`` (float64 gives a second summation order, which shows how
+    far bf16 rounding alone moves the outputs)."""
     def dot(a, w):
-        return a.to(w.dtype).float() @ w.float()
+        return a.to(w.dtype).to(accumulate) @ w.to(accumulate)
 
     def relu(v):
         return torch.clamp_min(v, 0.0)
@@ -158,7 +164,7 @@ def fused_nerf_eval_plain(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
     v = relu(dot(feat, kp["wvf"]) + dot(dd, kp["wvx"]) + dot(torch.sin(b), kp["wvs"])
              + dot(torch.cos(b), kp["wvc"]) + kp["bv"])
     rgb = dot(v, kp["wr"]) + kp["br"]
-    return torch.cat([rgb, sigma], dim=-1)
+    return torch.cat([rgb, sigma], dim=-1).float()
 
 
 def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,

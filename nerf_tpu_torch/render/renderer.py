@@ -14,12 +14,11 @@ samples are deterministic and nothing is differentiated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 
 from ..models.encoders import freq_out_dim
-from ..models.nerf_mlp import NeRFMLP
 from ..ops.fused_mlp import (fused_nerf_eval, fused_nerf_eval_plain, query_network,
                              repack_params, supports)
 from ..ops.integrate import composite_kernel
@@ -102,15 +101,25 @@ class RenderOptions:
         )
 
 
-def kernel_params(models: Mapping[str, NeRFMLP], opts: RenderOptions) -> Dict[str, Dict]:
-    """{"coarse": NeRFMLP, "fine": NeRFMLP} -> their ``repack_params`` weights,
-    in ``opts.compute_dtype``, on the models' device."""
+def kernel_params(tree: Mapping[str, Any], opts: RenderOptions,
+                  device: Union[str, torch.device] = "cpu") -> Dict[str, Dict]:
+    """{"coarse": mlp_tree, "fine": mlp_tree} in the JAX layout (``load_params``;
+    weights [in, out]) -> their ``repack_params`` weights in
+    ``opts.compute_dtype``, on ``device``.
+
+    The CUDA kernel takes bfloat16 weights only: float32 weights on a CUDA
+    device raise unless ``opts.use_fused_mlp`` is off (the plain version)."""
     if not supports(opts):
         raise NotImplementedError("only the 8x256 skip-4 view-direction NeRF "
                                   "with 10/4 frequency bands is ported")
-    return {name: repack_params(m.to_tree(), opts.xyz_freqs, opts.dir_freqs,
-                                _DTYPES[opts.compute_dtype])
-            for name, m in models.items()}
+    dev = torch.device(device)
+    if dev.type == "cuda" and opts.use_fused_mlp and opts.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"the fused CUDA kernel takes bfloat16 weights, not {opts.compute_dtype}; "
+            "set use_pallas_kernels False to run them through the plain version")
+    return {name: {k: v.to(dev) for k, v in repack_params(
+                sub, opts.xyz_freqs, opts.dir_freqs, _DTYPES[opts.compute_dtype]).items()}
+            for name, sub in tree.items()}
 
 
 def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions

@@ -31,7 +31,7 @@ from .config import make_cfg
 from .device import resolve_device
 from .render import occupancy as occ
 from .render.renderer import RenderOptions, kernel_params, make_density_fn, render_image
-from .train.checkpoint import from_jax_params, load_params
+from .train.checkpoint import load_params
 
 _PAGE = """<!DOCTYPE html><html><body style="margin:0;background:#222">
 <img id=v style="display:block;margin:auto;image-rendering:pixelated;width:600px">
@@ -115,9 +115,8 @@ class RenderService:
         self.device = resolve_device(device)
         self.size = size
         self.opts = RenderOptions.from_cfg(cfg)
-        models = from_jax_params(load_params(cfg.trained_model_dir), skips=self.opts.skips)
-        self.params = kernel_params({k: m.to(self.device) for k, m in models.items()},
-                                    self.opts)
+        self.params = kernel_params(load_params(cfg.trained_model_dir), self.opts,
+                                    self.device)
         self.grid: Optional[occ.OccupancyGrid] = None
         if self.opts.enable_ess:
             # init_grid's random voxels are all overwritten by the rebuild

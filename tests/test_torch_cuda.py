@@ -27,7 +27,7 @@ from nerf_tpu_torch.ops import integrate as tint
 from nerf_tpu_torch.render.renderer import RenderOptions, kernel_params, render_rays
 from nerf_tpu_torch.serve import RenderService, look_at_pose
 from nerf_tpu_torch.render.rays import image_rays
-from nerf_tpu_torch.train.checkpoint import from_jax_params, load_params
+from nerf_tpu_torch.train.checkpoint import load_params
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LEGO = os.path.join(ROOT, "checkpoints", "nerf", "lego", "nerf")
@@ -118,7 +118,7 @@ def test_integrate_kernel_rejects_a_misaligned_raw(cuda):
 @pytest.mark.cuda
 def test_render_rays_kernels_match_plain(lego, cuda):
     opts = RenderOptions(perturb=0.0, enable_ess=False)
-    params = kernel_params({k: m.to(cuda) for k, m in from_jax_params(lego).items()}, opts)
+    params = kernel_params(lego, opts, cuda)
     K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], device=cuda)
     o, d = image_rays(32, 32, K, torch.as_tensor(look_at_pose(0.5, 0.3, 4.0), device=cuda))
     got = render_rays(params, o.contiguous(), d.contiguous(), opts)

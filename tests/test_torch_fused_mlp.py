@@ -180,3 +180,33 @@ def test_supports_gate():
     assert fused_mlp.supports(RenderOptions())
     assert not fused_mlp.supports(RenderOptions(mlp_width=128))
     assert not fused_mlp.supports(RenderOptions(xyz_freqs=8))
+
+
+def test_plain_float64_sums_agree_with_float32_sums(lego):
+    """The float64-sum plain version is the same bf16 function: float32
+    weights give float32 sums either way (atol as the float32 bound), and
+    bf16 weights stay within the bf16 bound above."""
+    kp32 = fused_mlp.repack_params(lego["coarse"], weight_dtype=torch.float32)
+    kp16 = fused_mlp.repack_params(lego["coarse"])
+    pts, d = (torch.from_numpy(a) for a in _points(512, seed=11))
+    for kp, dtype in ((kp32, "float32"), (kp16, "bfloat16")):
+        got = fused_mlp.fused_nerf_eval_plain(kp, pts, d, torch.float64)
+        want = fused_mlp.fused_nerf_eval_plain(kp, pts, d)
+        assert got.dtype == torch.float32
+        assert_close(got.numpy(), want.numpy(), dtype)
+
+
+def test_fused_accuracy_tool_runs_on_the_cpu(capsys):
+    """The GPU measurement script, at a tiny size on the CPU (where the
+    kernel wrapper is the plain version, so kernel and plain agree exactly)."""
+    from nerf_tpu_torch.tools import fused_accuracy
+
+    assert fused_accuracy.main(["--device", "cpu", "--size", "8",
+                                "occupancy_grid_resolution", "4",
+                                "render_tile_rays", "48"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    heads = [l for l in lines if not l.startswith(" ")]
+    assert [h.split(",")[0] for h in heads] == [
+        "first tile coarse", "first tile fine", "last tile coarse", "last tile fine",
+        "ESS slab 0 of 1"]
+    assert sum("kernel vs plain   max 0," in l for l in lines) == 5

@@ -40,7 +40,7 @@ from nerf_tpu_torch.render.renderer import (RenderOptions, kernel_params, make_d
                                             render_image, render_rays)
 from nerf_tpu_torch.render.sampling import sample_coarse, sample_pdf, stratify
 from nerf_tpu_torch.serve import look_at_pose
-from nerf_tpu_torch.train.checkpoint import from_jax_params, load_params
+from nerf_tpu_torch.train.checkpoint import load_params
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LEGO = os.path.join(ROOT, "checkpoints", "nerf", "lego", "nerf")
@@ -149,7 +149,7 @@ def test_populate_from_density_matches_jax(lego):
     jgrid = jocc.populate_from_density(jocc.init_grid(jax.random.PRNGKey(1), 16),
                                        jax_density_fn(_jax_tree(lego["coarse"]), jopts))
     opts = RenderOptions(compute_dtype="float32")
-    kp = kernel_params(from_jax_params(lego), opts)
+    kp = kernel_params(lego, opts)
     grid = occ.populate_from_density(occ.init_grid(16, generator=torch.Generator().manual_seed(0)),
                                      make_density_fn(kp["coarse"], opts), chunk=20_000)
     np.testing.assert_array_equal(grid.occupied.numpy(), np.asarray(jgrid.occupied))
@@ -166,7 +166,7 @@ def test_render_rays_matches_jax(lego, ess):
     want = jrend.render_rays(_jax_tree(lego), jnp.asarray(o), jnp.asarray(d),
                              jax.random.PRNGKey(0), jopts, grid=jgrid if ess else None)
     opts = RenderOptions(**PARITY, enable_ess=ess)
-    got = render_rays(kernel_params(from_jax_params(lego), opts), torch.from_numpy(o),
+    got = render_rays(kernel_params(lego, opts), torch.from_numpy(o),
                       torch.from_numpy(d), opts, grid=tgrid if ess else None)
     for k in ("rgb_map", "acc_map", "rgb_map_0", "acc_map_0", "depth_map_0", "coarse_z_vals"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-4, err_msg=k)
@@ -180,12 +180,21 @@ def test_golden_image_through_bridged_jax_init():
     opts = RenderOptions(n_samples=16, n_importance=16, enable_ess=False, enable_ert=False,
                          tile_rays=256, **PARITY)
     params = init_nerf_params(jax.random.PRNGKey(0), jrend.RenderOptions(**PARITY))
-    models = from_jax_params(jax.tree_util.tree_map(np.asarray, params))
+    tree = jax.tree_util.tree_map(np.asarray, params)
     K = torch.tensor([[35.0, 0, 16], [0, 35.0, 16], [0, 0, 1]])
     pose = torch.eye(4)
     pose[2, 3] = 4.0
-    out = render_image(kernel_params(models, opts), pose, K, 32, 32, opts)
+    out = render_image(kernel_params(tree, opts), pose, K, 32, 32, opts)
     np.testing.assert_allclose(out["rgb_map"].numpy(), np.load(GOLDEN), rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_params_refuse_float32_weights_for_the_cuda_kernel(lego):
+    """The CUDA kernel takes bfloat16 weights; float32 ones raise before any
+    copy to the card, unless the plain version is asked for."""
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        kernel_params(lego, RenderOptions(compute_dtype="float32"), "cuda")
+    kp = kernel_params(lego, RenderOptions(compute_dtype="float32", use_fused_mlp=False))
+    assert kp["fine"]["wbuf"].dtype == torch.float32
 
 
 def test_render_options_from_cfg_match_jax():
