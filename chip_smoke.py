@@ -20,18 +20,42 @@ Phases, each printed with its elapsed seconds:
      pose, coarse and fine, and one ESS lattice slab), and each kernel's
      time on the first tile's fine pass, with its bound from those inputs;
   6. the warm-up pose rendered through the plain versions; PSNR >= 40 dB;
-  7. shutdown.
+  7. train: the committed epoch-49 lego state (params, Adam's moments and
+     counts) copied to a temp directory and resumed through the trainer's
+     entry point (python -m nerf_tpu_torch.train, called in-process) with
+     configs/nerf/lego.yaml at full width on the in-memory synthetic scene
+     at lego's size (100 images, 800x800): epoch 50, 500 steps of 1024 rays,
+     then an ESS rebuild and the final checkpoint. The launch counters are
+     zeroed before and read after, and every kernel must have been launched;
+     every logged loss must be finite; the checkpoint must hold 147 leaves,
+     step 13000, and load back through the port's load_checkpoint;
+  8. from the state that run resumed (epoch 49) and its ESS grid, on one
+     batch of 1024 rays of the model's own renders at 8 orbit poses: the fused backward (B2) against its plain version
+     on the step's own coarse and fine inputs with the real loss's upstream
+     gradients, and the whole train step (loss and every parameter
+     gradient) through the kernels against the same step through the plain
+     versions;
+  9. 10 steps on the kernel path against 10 on the plain path from that
+     state with the same batches;
+ 10. times: a window of warm train steps (ms per step, train rays/s, the
+     kernels' launches per step) and B2 on the fine batch beside its bound
+     and its plain version.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -59,11 +83,53 @@ PEAK_BYTES = 3.35e12
 # - integrate (float32): atol 2e-5 on rgb/depth/acc/weights, as
 #   tests/test_integrate_kernel.py (sums of up to 192 terms in another order).
 # - whole frame, kernels against plain versions: PSNR >= 40 dB.
+# - fused backward (B2, bf16), on the train path's own coarse and fine
+#   inputs, for every gradient leaf, dpts and ddirs:
+#   (a) against the plain backward run on the kernel's own recomputed
+#       forward (its activation stash), so that both multiply the same bf16
+#       activations under the same ReLU masks: ||k - p|| / ||p|| <= 1e-2,
+#       because each layer's gradient G is rounded to bf16 (2^-9 relative)
+#       before its two products, and a sum of such products keeps that
+#       relative size (1e-2 leaves ~2.5x); and max|k - p| / max|p|, the
+#       largest over all leaves of both inputs, within 2x the same figure of
+#       that plain backward summed in float64 (as the forward's gate above);
+#   (b) against the plain version with its own forward: ||k - p|| / ||p||
+#       <= max(1e-2, 2x ||p - p32|| / ||p32||), p32 the plain version with
+#       the float32 weights. The two forwards sum in other orders, so a ReLU
+#       mask or a bf16 rounding can flip between them, and where a few points
+#       carry a gradient one flip moves it by up to 11% (a 256-ray step on
+#       the CUDA tests' first run); the plain version summed in float64 need
+#       not flip the same unit, so the bound is how far bf16 itself moves the
+#       gradient (the float32 weights), which holds every flip of that kind.
+# - one whole train step through the kernels against the plain versions,
+#   same batch and random numbers: loss within 1e-4 relative (rounding flips
+#   average out over 1024 rays x 192 samples); each parameter's gradient
+#   within max(1e-2, 2x its distance between the plain path and the plain
+#   path with float32 weights), for the reason in (b).
+# - trajectory: 10 steps from one state with the same batches: the largest
+#   relative difference of a step's loss within max(1e-3, 2x that between
+#   the plain path and the plain path with float32 weights). 1e-3 alone,
+#   set before the first run, broke there (1.2e-2 after 9 steps on a loss
+#   of 0.002): Adam scales each update to ~lr whatever the gradient's size,
+#   so the small gradient differences above move the parameters apart and
+#   the gap grows step by step; how far bf16 itself moves the trajectory
+#   bounds that growth.
 FUSED_P99_REL, FUSED_P999_REL, FUSED_MAX_OVER_PLAIN64 = 1e-3, 1e-2, 2.0
 INTEGRATE_ATOL = 2e-5
 PSNR_MIN_DB = 40.0
+BWD_FRO_REL, BWD_MAX_OVER_PLAIN64, OVER_BF16_SPREAD = 1e-2, 2.0, 2.0
+STEP_LOSS_REL = 1e-4
+TRAJ_LOSS_REL, TRAJ_STEPS = 1e-3, 10
 
 MACS_PER_POINT = 593_408  # the lego MLP's multiply-adds per point (63+27 inputs)
+# B2 as the train step calls it (no input gradients): the forward again, dW
+# for every weight, and dX for every layer but layer 0 and the encoding
+# columns of layers 5 and 8 (64x256, 64x256, 32x128 MACs a point)
+BWD_MACS_PER_POINT = 2 * MACS_PER_POINT + MACS_PER_POINT - 64 * 256 - 64 * 256 - 32 * 128
+TRAIN_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "100",
+                   "train_dataset.H", "800", "train_dataset.W", "800", "train.epoch", "51",
+                   "grid_rebuild_ep", "1"]
+TRAIN_STEPS, STEP_WINDOW = 500, 50  # lego's ep_iter; warm steps timed in phase 10
 FUSED_IO_BYTES = 40  # pts, dirs in (24 B), raw out (16 B)
 SIZE = 200
 THETA0, PHI, RADIUS = 0.5, 0.3, 4.0  # the warm-up pose, rendered again in phase 6
@@ -347,6 +413,302 @@ def plain_phase(service):
     return (np.clip(rgb_k.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
 
 
+class _Tee(io.TextIOBase):
+    """Writes to several streams: the trainer's log goes to stdout and to a buffer."""
+
+    def __init__(self, *streams):
+        super().__init__()
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def _counters():
+    from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd, integrate as tint
+
+    return {"fused_nerf_eval": fused_mlp.fused_nerf_eval,
+            "fused_nerf_bwd": fused_mlp_bwd.fused_nerf_bwd, "integrate": tint.integrate}
+
+
+def train_phase(root, tmp):
+    """Resume the committed lego state through the trainer's entry point and
+    train one epoch; check its log and its checkpoint."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.train.__main__ import main as train_main
+    from nerf_tpu_torch.train.checkpoint import load_checkpoint
+
+    model_dir = os.path.join(tmp, "model")
+    os.makedirs(model_dir)
+    src = os.path.join(root, "checkpoints/nerf/lego/nerf")
+    for f in ("latest.npz", "latest.json"):
+        shutil.copy(os.path.join(src, f), model_dir)
+    with np.load(os.path.join(src, "latest.npz")) as data:
+        step0 = int(data["leaf_146"])
+    opts = [*TRAIN_OVERRIDES, "trained_model_dir", model_dir,
+            "record_dir", os.path.join(tmp, "record")]
+    cfg = make_cfg(os.path.join(root, "configs/nerf/lego.yaml"), opts)
+    for c in _counters().values():
+        c.launches = 0
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        state, grid = train_main(["--cfg_file", os.path.join(root, "configs/nerf/lego.yaml"),
+                                  *opts])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = {k: c.launches for k, c in _counters().items()}
+    log(f"train entry point: {train_s:.2f} s (data, resume, {TRAIN_STEPS} steps, ESS rebuild, "
+        f"checkpoint); launches {launches}")
+    check(all(v > 0 for v in launches.values()), "a kernel was not launched by the train path")
+    text = buf.getvalue()
+    losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
+    check(len(losses) == TRAIN_STEPS // 50 and all(math.isfinite(v) for v in losses),
+          f"logged losses {losses}")
+    log(f"{len(losses)} logged losses, all finite: {losses[0]:.5f} ... {losses[-1]:.5f}")
+    with np.load(os.path.join(model_dir, "latest.npz")) as data:
+        n_leaves, step = len(data.files), int(data["leaf_146"])
+    check(n_leaves == 147 and step == step0 + TRAIN_STEPS,
+          f"checkpoint: {n_leaves} leaves, step {step} (want 147, {step0 + TRAIN_STEPS})")
+    back = load_checkpoint(model_dir, state)
+    check(back is not None and back[0].step == step and back[1] == 50,
+          "the written checkpoint does not load back through load_checkpoint")
+    log(f"checkpoint: 147 leaves, step {step}, epoch {back[1]}; loads back")
+    return cfg, state, grid, launches
+
+
+def _clone_state(state):
+    from nerf_tpu_torch.train.state import TrainState
+    from nerf_tpu_torch.tree import tree_map
+
+    opt = state.opt_state
+    return TrainState(params=tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                                      state.params),
+                      opt_state=dataclasses.replace(opt, mu=[m.clone() for m in opt.mu],
+                                                    nu=[m.clone() for m in opt.nu]),
+                      step=state.step)
+
+
+def _lego_views(service, n_views: int = 8):
+    """(images_u8, poses, K) of the committed lego model's own renders at
+    n_views poses of the serving orbit: targets the resumed model explains,
+    so that a step is one of continued lego training."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.serve import look_at_pose
+
+    thetas = [2.0 * math.pi * i / n_views for i in range(n_views)]
+    imgs = [(service.render(t, PHI, RADIUS).clamp(0, 1) * 255).round().to(torch.uint8)
+            for t in thetas]
+    poses = np.stack([look_at_pose(t, PHI, RADIUS) for t in thetas])
+    return torch.stack(imgs), torch.as_tensor(poses, device=service.device), service.K
+
+
+def _rel(a, b):
+    """(||a - b|| / ||b||, max|a - b| / max|b|, max|a - b|)."""
+    err = (a.double() - b.double())
+    return (float(err.norm() / b.double().norm().clamp_min(1e-30)),
+            float(err.abs().max() / b.double().abs().max().clamp_min(1e-30)),
+            float(err.abs().max()))
+
+
+def grads_phase(cfg, state, grid, data, dev):
+    """B2 on the path's own inputs, and one whole step, kernels against plain."""
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp_bwd as fb
+    from nerf_tpu_torch.ops.fused_mlp import repack_params
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch
+
+    opts = RenderOptions.from_cfg(cfg)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    plain32 = dataclasses.replace(plain, compute_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ro, rd, tgt = sample_ray_batch(gen, *data, int(cfg.task_arg.N_rays))
+    rng = gen.get_state()
+    seen, real = [], fb.fused_nerf_bwd
+
+    def record(kp, pts, dirs, g, input_grads=True):
+        seen.append((kp, pts, dirs, g))
+        return real(kp, pts, dirs, g, input_grads)
+
+    record.launches = 0  # the wrapper counts on the name it is bound to
+    fb.fused_nerf_bwd = record
+    try:
+        lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen)
+    finally:
+        fb.fused_nerf_bwd = real
+    step = {}
+    for name, o in (("plain", plain), ("plain32", plain32)):
+        gen.set_state(rng)
+        step[name] = loss_and_grads(state.params, ro, rd, tgt, o, grid, gen)
+    torch.cuda.synchronize()
+    check(len(seen) == 2, f"{len(seen)} backward calls in one step, expected 2")
+
+    def flat(out):
+        return [out[0][k] for k in fb._GRAD_KEYS] + [out[1], out[2]]
+
+    names = list(fb._GRAD_KEYS) + ["dpts", "ddirs"]
+    max_err, worst, worst64 = 0.0, 0.0, 0.0
+    for kp, pts, dirs, g in sorted(seen, key=lambda c: c[1].shape[0]):
+        model = "coarse" if pts.shape[0] == ro.shape[0] * opts.n_samples else "fine"
+        kgrads, dpts, ddirs, stash = fb.launch(kp, pts, dirs, g)
+        got = flat((kgrads, dpts, ddirs))
+        acts = fb.stash_activations(kp, stash, pts, dirs)
+        own = flat(fb.backward_from_activations(kp, acts, g))
+        own64 = flat(fb.backward_from_activations(kp, acts, g, accumulate=torch.float64))
+        want = flat(fb.fused_nerf_bwd_plain(kp, pts, dirs, g))
+        kp32 = {k: v.to(dev) for k, v in repack_params(
+            state.params[model], opts.xyz_freqs, opts.dir_freqs, torch.float32).items()}
+        want32 = flat(fb.fused_nerf_bwd_plain(kp32, pts, dirs, g))
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"B2 {model}: non-finite")
+        errs = [_rel(k, p) for k, p in zip(got, own)]
+        errs64 = [_rel(q, p) for q, p in zip(own64, own)]
+        fro = max(e[0] for e in errs)
+        worst = max(worst, max(e[1] for e in errs))
+        worst64 = max(worst64, max(e[1] for e in errs64))
+        max_err = max(max_err, max(e[2] for e in errs))
+        log(f"fused_nerf_bwd {model}, {pts.shape[0]} pts of one step, against the plain "
+            f"backward on the kernel's stash: relative norm err max {fro:.3g} at "
+            f"{names[max(range(len(errs)), key=lambda i: errs[i][0])]} (tol {BWD_FRO_REL}; "
+            f"float64 sums {max(e[0] for e in errs64):.3g}); max|k-p|/max|p| "
+            f"{max(e[1] for e in errs):.3g} (float64 sums {max(e[1] for e in errs64):.3g})")
+        check(fro <= BWD_FRO_REL, f"fused_nerf_bwd disagrees with its plain backward on {model}")
+        ratios = []
+        for nm, k, p, p32 in zip(names, got, want, want32):
+            e, spread = _rel(k, p)[0], _rel(p, p32)[0]
+            ratios.append((e / max(BWD_FRO_REL, OVER_BF16_SPREAD * spread), nm, e, spread))
+        r, nm, e, spread = max(ratios)
+        log(f"fused_nerf_bwd {model} against the plain version with its own forward: worst "
+            f"leaf {nm}, relative norm err {e:.3g} against bf16's own {spread:.3g} (tol "
+            f"max({BWD_FRO_REL}, {OVER_BF16_SPREAD} x))")
+        check(r <= 1.0, f"fused_nerf_bwd disagrees with fused_nerf_bwd_plain on {model}")
+    log(f"fused_nerf_bwd largest element err {worst:.4g} of the leaf's max, float64 sums "
+        f"{worst64:.4g} (tol {BWD_MAX_OVER_PLAIN64} x)")
+    check(worst <= BWD_MAX_OVER_PLAIN64 * worst64,
+          "fused_nerf_bwd's largest error exceeds the plain backward's own spread")
+
+    (lp, _, gp), (_, _, g32) = step["plain"], step["plain32"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    ratios = []
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        e, spread = _rel(a, b)[0], _rel(b, c)[0]
+        ratios.append((e / max(BWD_FRO_REL, OVER_BF16_SPREAD * spread), i, e, spread))
+    r, i, e, spread = max(ratios)
+    errs = sorted(x[2] for x in ratios)
+    log(f"train step, kernels vs plain on one batch: loss {float(lk):.7f} vs {float(lp):.7f} "
+        f"(rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); gradients of {len(gk)} leaves: relative "
+        f"norm err median {errs[len(errs) // 2]:.4g}, max {errs[-1]:.4g}; worst against "
+        f"bf16's own spread: leaf {i}, {e:.4g} against {spread:.4g} (tol max({BWD_FRO_REL}, "
+        f"{OVER_BF16_SPREAD} x))")
+    check(math.isfinite(float(lk)) and loss_rel <= STEP_LOSS_REL, "train step loss disagrees")
+    check(r <= 1.0, "train step gradients disagree")
+    fine = max(seen, key=lambda c: c[1].shape[0])
+    return max_err, fine
+
+
+def trajectory_phase(cfg, state, grid, data, dev):
+    """TRAJ_STEPS steps through the kernels, through the plain versions and
+    through the plain versions with float32 weights."""
+    import torch
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import train_step
+
+    opts = RenderOptions.from_cfg(cfg)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    tx = make_optimizer(cfg)
+    losses = {}
+    for name, o in (("kernel", opts), ("plain", plain),
+                    ("plain32", dataclasses.replace(plain, compute_dtype="float32"))):
+        st = _clone_state(state)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        losses[name] = [float(train_step(st, *data, tx, o, int(cfg.task_arg.N_rays), grid,
+                                         gen)["loss"]) for _ in range(TRAJ_STEPS)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"]))
+    spread = max(abs(a - b) / abs(b) for a, b in zip(losses["plain32"], losses["plain"]))
+    tol = max(TRAJ_LOSS_REL, OVER_BF16_SPREAD * spread)
+    log(f"{TRAJ_STEPS} steps: losses kernel {[f'{v:.6g}' for v in losses['kernel']]}, plain "
+        f"{[f'{v:.6g}' for v in losses['plain']]}, plain with float32 weights "
+        f"{[f'{v:.6g}' for v in losses['plain32']]}; kernel vs plain max rel {rel:.3g}, "
+        f"float32 vs plain {spread:.3g} (tol {tol:.3g})")
+    check(all(math.isfinite(v) for v in losses["kernel"]) and rel <= tol,
+          "the kernel path's trajectory leaves the plain path's")
+
+
+def train_times_phase(cfg, state, grid, data, dev, fine):
+    """A window of warm train steps, and B2 on the fine batch."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp_bwd
+    from nerf_tpu_torch.ops.fused_mlp import BBUF_SIZE, WBUF_SIZE
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import train_step
+
+    opts = RenderOptions.from_cfg(cfg)
+    tx = make_optimizer(cfg)
+    n_rays = int(cfg.task_arg.N_rays)
+    st = _clone_state(state)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(5):
+        train_step(st, *data, tx, opts, n_rays, grid, gen)
+    torch.cuda.synchronize()
+    for c in _counters().values():
+        c.launches = 0
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(STEP_WINDOW):
+        t = time.perf_counter()
+        train_step(st, *data, tx, opts, n_rays, grid, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    window = time.perf_counter() - t0
+    per_step = {k: c.launches / STEP_WINDOW for k, c in _counters().items()}
+    w = np.array(times) * 1e3
+    log(f"train step window of {STEP_WINDOW} warm steps: {window * 1e3 / STEP_WINDOW:.3f} ms per "
+        f"step, {n_rays * STEP_WINDOW / window:.0f} train rays/s; per step min {w.min():.3f}, "
+        f"median {np.median(w):.3f}, max {w.max():.3f}, std {w.std():.3f} ms; launches per "
+        f"step {per_step}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    kp, pts, dirs, g = fine
+    n = pts.shape[0]
+    lib, sld, gld, pst = fused_mlp_bwd._lib()
+    splits = fused_mlp_bwd.splits_for(n)
+    scratch = [torch.empty((n, sld), dtype=torch.bfloat16, device=dev),
+               torch.empty((n, gld), dtype=torch.bfloat16, device=dev),
+               torch.empty((splits, pst), device=dev),
+               torch.empty(WBUF_SIZE + BBUF_SIZE, device=dev)]
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), kp["wbuf"].data_ptr(),
+            kp["bbuf"].data_ptr(), *(t.data_ptr() for t in scratch), None, None, n, splits, 0,
+            stream]
+    check(n % 64 == 0 and lib.launch_fused_nerf_bwd(*args) == 0, "launch_fused_nerf_bwd failed")
+    ms = time_ms(lambda: lib.launch_fused_nerf_bwd(*args), reps=10)
+    wrapper_ms = time_ms(lambda: fused_mlp_bwd.fused_nerf_bwd(kp, pts, dirs, g, input_grads=False),
+                         reps=10)
+    plain_ms = time_ms(lambda: fused_mlp_bwd.fused_nerf_bwd_plain(kp, pts, dirs, g,
+                                                                  input_grads=False), reps=3)
+    flops = 2.0 * BWD_MACS_PER_POINT * n
+    nbytes = 40 * n + WBUF_SIZE * 2 + BBUF_SIZE * 4 + (WBUF_SIZE + BBUF_SIZE) * 4
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    log(f"fused_nerf_bwd fine batch, {n} pts: kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({BWD_MACS_PER_POINT} MACs a point; {splits} splits)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+            else "bytes"}
+
+
 def main() -> int:
     import torch
 
@@ -356,7 +718,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from nerf_tpu_torch.ops import build, fused_mlp
-    from nerf_tpu_torch.train.checkpoint import load_params
+    from nerf_tpu_torch.train.checkpoint import load_checkpoint, load_params
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -384,15 +746,40 @@ def main() -> int:
 
     log("phase 5: kernels against their plain versions on the serving path's inputs")
     kernels = path_phase(service, random_errs)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-
     log("phase 6: the kernel path against the plain path")
     rgb_k = plain_phase(service)
     # renders are deterministic: the served PNG is the same frame
     check(bool((rgb_k == first_png).all()), "served frame differs from a re-render")
 
-    log("phase 7: done")
+    log("phase 7: train through the entry point")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, state, _, train_launches = train_phase(root, tmp)
+    # phases 8-10 start from the state the run resumed (epoch 49) and its ESS
+    # grid (the service's), on the model's own renders. 500 steps on the
+    # synthetic scene's noise images drive the model toward their mean gray
+    # (the loss nears 2 x 1/12, the variance of uniform colours, in both
+    # passes), where the gradients nearly vanish; and the lego model's first
+    # steps on those images (loss 0.6) are so steep that two paths 1e-3
+    # apart in their gradients part after a few steps (0.08 in the loss
+    # after 8, on this script's first run)
+    state = load_checkpoint(os.path.join(root, "checkpoints/nerf/lego/nerf"), state)[0]
+    grid = service.grid
+    data = _lego_views(service)
+    log("phase 8: the backward kernel and a whole step against their plain versions")
+    bwd_err, fine = grads_phase(cfg, state, grid, data, dev)
+    log("phase 9: trajectory")
+    trajectory_phase(cfg, state, grid, data, dev)
+    log("phase 10: train times")
+    bwd = train_times_phase(cfg, state, grid, data, dev, fine)
+    kernels.insert(1, {"name": "fused_nerf_bwd", "route": "cuda",
+                       "source": "nerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+                       "replaces": "nerf_tpu/ops/fused_mlp_bwd.py:43", "max_abs_err": bwd_err,
+                       **bwd, "library_ms": None})
+    log(f"launches on the serving path {launches}; on the train path {train_launches}")
+    for k in kernels:
+        k["launches"] = train_launches[k["name"]]
+
+    log("phase 11: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(smi, flush=True)

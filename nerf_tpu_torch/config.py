@@ -2,12 +2,15 @@
 
 A config is a tree of dicts with attribute access, loaded from YAML with
 its ``parent_cfg`` chain merged (parent first), then overridden by trailing
-``key.sub value`` pairs. The defaults cover what ``RenderOptions.from_cfg``
-reads and ``trained_model_dir``, which defaults, as in ``nerf_tpu``, to
-``<workspace>/trained_model/<task>/<scene>/<exp_name>``.
+``key.sub value`` pairs. The defaults are ``nerf_tpu``'s for what the port
+reads: ``RenderOptions.from_cfg``, the trainer (datasets, optimizer,
+schedule, cadence, ``seed``, ``resume``) and the output directories, which
+default, as in ``nerf_tpu``, to ``<workspace>/<kind>/<task>/<scene>/<exp_name>``
+for ``trained_model_dir`` and ``record_dir``.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Any, Dict, List, Optional
 
@@ -41,6 +44,9 @@ class Config(dict):
                 self[k] = v
         return self
 
+    def clone(self) -> "Config":
+        return copy.deepcopy(self)
+
     def set_path(self, dotted: str, value):
         node = self
         parts = dotted.split(".")
@@ -54,20 +60,30 @@ class Config(dict):
 def default_cfg() -> Config:
     return Config({
         "task": "nerf", "exp_name": "default", "scene": "lego",
+        "resume": True, "seed": 0, "fix_random": False,
+        "train_dataset_module": "blender", "test_dataset_module": "blender",
         "network_module": "nerf",
-        "task_arg": {"white_bkgd": 1, "N_samples": 64, "N_importance": 128,
+        "task_arg": {"N_rays": 1024, "white_bkgd": 1, "N_samples": 64, "N_importance": 128,
                      "use_viewdirs": True, "lindisp": False, "perturb": 1.0,
-                     "raw_noise_std": 0.0},
+                     "raw_noise_std": 0.0, "precrop_iters": 0, "precrop_frac": 0.5},
         "network": {"nerf": {"W": 256, "D": 8, "skips": [4]},
                     "xyz_encoder": {"type": "frequency", "input_dim": 3, "freq": 10},
                     "dir_encoder": {"type": "frequency", "input_dim": 3, "freq": 4},
                     "dtype": "bfloat16"},
+        "train_dataset": {"data_root": "data/nerf_synthetic", "split": "train", "H": 800,
+                          "W": 800},
+        "test_dataset": {"data_root": "data/nerf_synthetic", "split": "test", "H": 800,
+                         "W": 800},
+        "train": {"lr": 5e-4, "weight_decay": 0.0, "epoch": 600, "optim": "adam",
+                  "scheduler": {"type": "exponential", "gamma": 0.1, "decay_epochs": 500}},
+        "ep_iter": 500, "save_ep": 40, "eval_ep": 40, "save_latest_ep": 10,
+        "log_interval": 10, "grid_rebuild_ep": 10, "auto_restart": 0,
         "near": 2.0, "far": 6.0,
         "enable_ess": True, "enable_ert": True, "ert_threshold": 0.01,
         "occupancy_grid_resolution": 128,
         "use_pallas_kernels": True, "use_pallas_integrate": True,
         "render_tile_rays": 8192,
-        "workspace": "workspace", "trained_model_dir": "",
+        "workspace": "workspace", "trained_model_dir": "", "record_dir": "",
     })
 
 
@@ -108,8 +124,8 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None) -
         raise ValueError(f"overrides must be key/value pairs, got {opts}")
     for key, val in zip(opts[::2], opts[1::2]):
         cfg.set_path(key, _coerce(val))
-    if not cfg.get("trained_model_dir"):
-        cfg["trained_model_dir"] = os.path.join(
-            cfg.get("workspace", "workspace"), "trained_model", cfg.task,
-            cfg.get("scene", ""), cfg.exp_name)
+    tail = os.path.join(cfg.task, cfg.get("scene", ""), cfg.exp_name)
+    for key, kind in (("trained_model_dir", "trained_model"), ("record_dir", "record")):
+        if not cfg.get(key):
+            cfg[key] = os.path.join(cfg.get("workspace", "workspace"), kind, tail)
     return cfg

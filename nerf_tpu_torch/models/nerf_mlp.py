@@ -116,3 +116,19 @@ class NeRFMLP(nn.Module):
         for layer, leaf in zip(model.views_linears, tree["views_linears"]):
             load(layer, leaf)
         return model
+
+
+def init_nerf_mlp(generator: Optional[torch.Generator] = None, D: int = 8, W: int = 256,
+                  input_ch: int = 63, input_ch_views: int = 27, skips: Sequence[int] = (4,),
+                  device: Optional[torch.device] = None) -> Tree:
+    """The counterpart of ``nerf_tpu``'s ``init_nerf_mlp``: a JAX-layout tree
+    (weights [in, out]) with U(+-1/sqrt(fan_in)) weights and biases drawn from
+    ``generator``; float32 contiguous leaves on ``device`` that require grad."""
+    mlp = NeRFMLP(D=D, W=W, input_ch=input_ch, input_ch_views=input_ch_views, skips=skips,
+                  generator=generator)
+
+    def leaf(x):
+        return x.contiguous().to(device).requires_grad_(True)
+
+    return {k: [{n: leaf(x) for n, x in d.items()} for d in v] if isinstance(v, list)
+            else {n: leaf(x) for n, x in v.items()} for k, v in mlp.to_tree().items()}

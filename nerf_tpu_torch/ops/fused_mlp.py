@@ -16,6 +16,11 @@ on CPU tensors. Both read the weights as ``repack_params`` lays them out:
 Matmul operands are rounded to the weight dtype (bf16 on the serving
 path) and summed in float32; the phases ``a`` and ``b`` are formed in
 float32, one exact multiply by a power of two per entry.
+
+``fused_nerf_eval_diff`` is the differentiable form (the counterpart of
+``nerf_tpu``'s custom-VJP ``fused_nerf_eval_diff``): it takes the standard MLP
+tree, repacks it, runs this forward, and its backward is
+``ops/fused_mlp_bwd.py`` (the hand-written backward kernel on CUDA tensors).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..models.encoders import freq_bands
+from ..tree import tree_flatten, tree_unflatten
 from . import build
 
 # packed kernel buffers (csrc/fused_mlp.cu reports the same sizes)
@@ -172,11 +178,12 @@ def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
     """pts, dirs: [P, 3] float32 -> raw [P, 4] (rgb_raw, sigma_raw) float32.
 
     CUDA tensors go through the CUDA kernel, CPU tensors through
-    ``fused_nerf_eval_plain``. Forward only: tensors that require grad raise.
+    ``fused_nerf_eval_plain``. Forward only: tensors that require grad raise
+    (``fused_nerf_eval_diff`` differentiates).
     """
     if pts.requires_grad or dirs.requires_grad:
-        raise RuntimeError("fused_nerf_eval is forward-only: its backward "
-                           "kernel is not ported yet")
+        raise RuntimeError("fused_nerf_eval is forward-only; use fused_nerf_eval_diff "
+                           "for gradients")
     if pts.device.type == "cpu":
         return fused_nerf_eval_plain(kp, pts, dirs)
     P = pts.shape[0]
@@ -225,12 +232,61 @@ def supports(opts) -> bool:
             and opts.xyz_freqs == 10 and opts.dir_freqs == 4)
 
 
-def query_network(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
-                  viewdirs: torch.Tensor, plain: bool = False) -> torch.Tensor:
+class _FusedNeRF(torch.autograd.Function):
+    """raw = MLP(pts, dirs) with the MLP's standard-layout leaves as inputs.
+    Forward: ``fused_nerf_eval`` (or its plain version); backward:
+    ``fused_nerf_bwd`` (or its plain version), then ``kgrads_to_param_grads``."""
+
+    @staticmethod
+    def forward(ctx, pts, dirs, spec, freqs, weight_dtype, plain, *leaves):
+        tree = tree_unflatten(spec, [leaf.detach() for leaf in leaves])
+        kp = repack_params(tree, *freqs, weight_dtype=weight_dtype)
+        fn = fused_nerf_eval_plain if plain else fused_nerf_eval
+        raw = fn(kp, pts.detach(), dirs.detach())
+        ctx.save_for_backward(pts, dirs)
+        ctx.kp, ctx.tree, ctx.freqs, ctx.plain = kp, tree, freqs, plain
+        return raw
+
+    @staticmethod
+    def backward(ctx, g):
+        from .fused_mlp_bwd import fused_nerf_bwd, fused_nerf_bwd_plain, kgrads_to_param_grads
+
+        pts, dirs = ctx.saved_tensors
+        want_inputs = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        fn = fused_nerf_bwd_plain if ctx.plain else fused_nerf_bwd
+        kgrads, dpts, ddirs = fn(ctx.kp, pts.detach(), dirs.detach(),
+                                 g.float().contiguous(), input_grads=want_inputs)
+        grads, _ = tree_flatten(kgrads_to_param_grads(kgrads, ctx.tree, *ctx.freqs))
+        return (dpts if ctx.needs_input_grad[0] else None,
+                ddirs if ctx.needs_input_grad[1] else None, None, None, None, None, *grads)
+
+
+def fused_nerf_eval_diff(params: Dict[str, Any], pts: torch.Tensor, dirs: torch.Tensor,
+                         xyz_freqs: int = 10, dir_freqs: int = 4,
+                         weight_dtype: torch.dtype = torch.bfloat16,
+                         plain: bool = False) -> torch.Tensor:
+    """Differentiable ``fused_nerf_eval``. ``params``: the standard MLP tree of
+    tensors (weights [in, out], e.g. a train state's ``params["coarse"]``);
+    its leaves, pts and dirs get gradients. CUDA tensors take the forward and
+    the backward kernel, CPU tensors (or ``plain=True``) their plain versions."""
+    leaves, spec = tree_flatten(params)
+    return _FusedNeRF.apply(pts, dirs, spec, (xyz_freqs, dir_freqs), weight_dtype, plain,
+                            *leaves)
+
+
+def query_network(params: Dict[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
+                  plain: bool = False, xyz_freqs: int = 10, dir_freqs: int = 4,
+                  weight_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] through the fused
-    kernel (``plain=True``: through its plain version on any device)."""
+    kernel (``plain=True``: through its plain version on any device).
+    ``params`` is either kernel weights (``repack_params``; forward only, the
+    serving path) or the standard MLP tree (differentiable, the train path;
+    the frequencies and the weight dtype say how to repack it)."""
     n, s, _ = pts.shape
     dirs = viewdirs[:, None, :].expand(n, s, 3).reshape(-1, 3).float()
     flat = pts.reshape(-1, 3).float().contiguous()
-    fn = fused_nerf_eval_plain if plain else fused_nerf_eval
-    return fn(kp, flat, dirs).reshape(n, s, 4)
+    if "wbuf" in params:
+        fn = fused_nerf_eval_plain if plain else fused_nerf_eval
+        return fn(params, flat, dirs).reshape(n, s, 4)
+    return fused_nerf_eval_diff(params, flat, dirs, xyz_freqs, dir_freqs, weight_dtype,
+                                plain).reshape(n, s, 4)

@@ -6,6 +6,12 @@ tensors and runs ``integrate_plain``, the same math in plain PyTorch, on
 CPU tensors. Their transmittance is the Pallas kernel's: an exclusive sum of
 log(1 - alpha + 1e-10), each term a stable logaddexp, rather than the
 cumprod of ``render/composite.py``; both agree with it to float32 rounding.
+
+``composite_kernel`` is differentiable (the counterpart of ``nerf_tpu``'s
+``_composite_pallas_diff``): its forward is ``integrate``, and its backward
+recomputes ``render/composite.py::composite`` under torch autograd, as the
+JAX package recomputes through XLA. The JAX package has no backward kernel
+for compositing, so neither has the port.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ from typing import Dict
 
 import torch
 
-from ..render.composite import finish_maps
+from ..render.composite import composite, finish_maps
 from . import build
 
 _LOG_EPS = -23.025850929940457  # log(1e-10)
@@ -57,10 +63,10 @@ def integrate(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
               ert_threshold: float = 0.0, white_bkgd: bool = True,
               sigma_activation: str = "relu") -> Dict[str, torch.Tensor]:
     """``integrate_plain``'s function: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Forward only: inputs that require grad raise."""
+    plain version for CPU tensors. Forward only: inputs that require grad
+    raise (``composite_kernel`` differentiates)."""
     if raw.requires_grad or z_vals.requires_grad or rays_d.requires_grad:
-        raise RuntimeError("integrate is forward-only: its autograd wrapper "
-                           "is not ported yet")
+        raise RuntimeError("integrate is forward-only; use composite_kernel for gradients")
     if raw.device.type == "cpu":
         return integrate_plain(raw, z_vals, rays_d, ert_threshold, white_bkgd,
                                sigma_activation)
@@ -103,12 +109,43 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_OUTPUTS = ("rgb_map", "depth_map", "acc_map", "disp_map", "weights")
+
+
+class _Composite(torch.autograd.Function):
+    """Forward: ``integrate`` (or its plain version). Backward: the vjp of
+    ``composite`` with the same options, recomputed under autograd."""
+
+    @staticmethod
+    def forward(ctx, raw, z_vals, rays_d, white_bkgd, ert_threshold, sigma_activation, plain):
+        fn = integrate_plain if plain else integrate
+        out = fn(raw.detach(), z_vals.detach(), rays_d.detach(), ert_threshold=ert_threshold,
+                 white_bkgd=white_bkgd, sigma_activation=sigma_activation)
+        ctx.save_for_backward(raw, z_vals, rays_d)
+        ctx.opts = (white_bkgd, ert_threshold, sigma_activation)
+        return tuple(out[k] for k in _OUTPUTS)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        white_bkgd, ert, act = ctx.opts
+        needs = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out = composite(*inputs, white_bkgd=white_bkgd,
+                            ert_threshold=ert if ert > 0 else None, sigma_activation=act)
+            wanted = [t for t, n in zip(inputs, needs) if n]
+            got = iter(torch.autograd.grad([out[k] for k in _OUTPUTS], wanted, grads,
+                                           allow_unused=True))
+        return (*(next(got) if n else None for n in needs), None, None, None, None)
+
+
 def composite_kernel(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor, *,
                      white_bkgd: bool = True, ert_threshold: float = 0.0,
                      sigma_activation: str = "relu", plain: bool = False
                      ) -> Dict[str, torch.Tensor]:
     """Drop-in for ``render.composite.composite`` (noise-free), through the
-    kernel (``plain=True``: through its plain version on any device)."""
-    fn = integrate_plain if plain else integrate
-    return fn(raw, z_vals, rays_d, ert_threshold=ert_threshold, white_bkgd=white_bkgd,
-              sigma_activation=sigma_activation)
+    kernel (``plain=True``: through its plain version on any device).
+    Differentiable in raw, z_vals and rays_d."""
+    out = _Composite.apply(raw, z_vals, rays_d, white_bkgd, float(ert_threshold),
+                           sigma_activation, plain)
+    return dict(zip(_OUTPUTS, out))

@@ -4,7 +4,9 @@ A bool grid [R, R, R] over the bbox [-2, 2]^3. ``populate_from_density``
 rebuilds it from the model's density on a (3R)^3 lattice (3x3x3 offsets
 {0, .5, 1} per cell, max-pooled, threshold 0.01), and
 ``sample_coarse_with_ess`` re-linspaces the coarse samples of rays that are
-mostly empty into their first..last occupied z-range.
+mostly empty into their first..last occupied z-range. ``update_from_samples``
+marks the voxels of dense samples and ``decay`` clears voxels at random, so
+that stale occupancy can heal.
 """
 from __future__ import annotations
 
@@ -39,6 +41,15 @@ def init_grid(resolution: int = 128, bbox_half: float = 2.0,
         bbox_max=torch.full((3,), bbox_half, dtype=torch.float32, device=device))
 
 
+def full_grid(resolution: int = 128, bbox_half: float = 2.0,
+              device: Optional[torch.device] = None) -> OccupancyGrid:
+    """A fully occupied grid (ESS does nothing), for ablations."""
+    return OccupancyGrid(
+        occupied=torch.ones((resolution,) * 3, dtype=torch.bool, device=device),
+        bbox_min=torch.full((3,), -bbox_half, dtype=torch.float32, device=device),
+        bbox_max=torch.full((3,), bbox_half, dtype=torch.float32, device=device))
+
+
 def _voxel_index(grid: OccupancyGrid, pts: torch.Tensor) -> torch.Tensor:
     res = grid.occupied.shape[0]
     x = (pts - grid.bbox_min) / (grid.bbox_max - grid.bbox_min)
@@ -50,6 +61,29 @@ def query(grid: OccupancyGrid, pts: torch.Tensor) -> torch.Tensor:
     """pts: [..., 3] -> occupied bool [...]."""
     idx = _voxel_index(grid, pts)
     return grid.occupied[idx[..., 0], idx[..., 1], idx[..., 2]]
+
+
+def update_from_samples(grid: OccupancyGrid, pts: torch.Tensor, density: torch.Tensor,
+                        threshold: float = 0.01) -> OccupancyGrid:
+    """Mark the voxels holding samples with density above ``threshold``."""
+    res = grid.occupied.shape[0]
+    idx = _voxel_index(grid, pts.reshape(-1, 3))
+    flat = (idx[:, 0] * res + idx[:, 1]) * res + idx[:, 2]
+    hot = (density.reshape(-1) > threshold).to(torch.uint8)
+    occ = grid.occupied.to(torch.uint8).reshape(-1)
+    occ = occ.scatter_reduce(0, flat, hot, reduce="amax")
+    return grid._replace(occupied=occ.reshape(grid.occupied.shape).bool())
+
+
+def decay(grid: OccupancyGrid, keep_prob: float = 0.99,
+          generator: Optional[torch.Generator] = None,
+          u: Optional[torch.Tensor] = None) -> OccupancyGrid:
+    """Clear each occupied voxel with probability 1 - ``keep_prob``. ``u``
+    optionally gives the uniform draws [R, R, R] (a test feeds the JAX
+    package's)."""
+    if u is None:
+        u = torch.rand(grid.occupied.shape, generator=generator, device=grid.occupied.device)
+    return grid._replace(occupied=grid.occupied & (u < keep_prob))
 
 
 def populate_from_density(grid: OccupancyGrid,

@@ -15,12 +15,12 @@ def pixel_dirs(i: torch.Tensor, j: torch.Tensor, K: torch.Tensor) -> torch.Tenso
 
 
 def rays_for_pixels(i: torch.Tensor, j: torch.Tensor, K: torch.Tensor, c2w: torch.Tensor):
-    """Rays for pixel coordinates i, j [...]; c2w [4,4] or [3,4] -> (rays_o,
-    normalized rays_d) [..., 3]."""
+    """Rays for pixel coordinates i, j [...]; c2w [4,4] or [3,4], or one per
+    pixel [..., 4, 4] -> (rays_o, normalized rays_d) [..., 3]."""
     dirs = pixel_dirs(i, j, K)
-    rays_d = torch.sum(dirs[..., None, :] * c2w[:3, :3], dim=-1)
+    rays_d = torch.sum(dirs[..., None, :] * c2w[..., :3, :3], dim=-1)
     rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    rays_o = c2w[..., :3, 3].expand(rays_d.shape)
     return rays_o, rays_d
 
 

@@ -8,11 +8,17 @@ fine query -> composite. ``render_image`` renders an image in tiles of
 The query goes through the fused MLP kernel and compositing through the
 integrate kernel; on CPU tensors both wrappers run their plain versions.
 ``use_fused_mlp=False`` / ``use_integrate_kernel=False`` take the plain
-versions on any device. This slice renders for evaluation only: the fine
-samples are deterministic and nothing is differentiated.
+versions on any device.
+
+Serving renders under ``no_grad`` with kernel weights (``kernel_params``).
+Training (``render_rays(..., train=True)``) takes the standard MLP trees,
+draws random fine-sample positions, detaches the fine-sampling inputs
+(``detach_fine_sampling``) and differentiates through both kernels' autograd
+Functions (the backward kernel of the MLP; a recomputed compositing).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 
@@ -54,6 +60,9 @@ class RenderOptions:
     tile_rays: int = 8192
     use_fused_mlp: bool = True
     use_integrate_kernel: bool = True
+    # detach the coarse weights and bin mid-points from the fine sampling
+    # (original NeRF; nerf_tpu's default, renderer.py:104-108)
+    detach_fine_sampling: bool = True
 
     @property
     def input_ch(self) -> int:
@@ -113,13 +122,19 @@ def kernel_params(tree: Mapping[str, Any], opts: RenderOptions,
         raise NotImplementedError("only the 8x256 skip-4 view-direction NeRF "
                                   "with 10/4 frequency bands is ported")
     dev = torch.device(device)
-    if dev.type == "cuda" and opts.use_fused_mlp and opts.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"the fused CUDA kernel takes bfloat16 weights, not {opts.compute_dtype}; "
-            "set use_pallas_kernels False to run them through the plain version")
+    check_weight_dtype(opts, dev)
     return {name: {k: v.to(dev) for k, v in repack_params(
                 sub, opts.xyz_freqs, opts.dir_freqs, _DTYPES[opts.compute_dtype]).items()}
             for name, sub in tree.items()}
+
+
+def check_weight_dtype(opts: RenderOptions, device: torch.device) -> None:
+    """The CUDA kernels take bfloat16 weights only: raise for float32 weights
+    on a CUDA device unless ``opts.use_fused_mlp`` is off (the plain version)."""
+    if device.type == "cuda" and opts.use_fused_mlp and opts.compute_dtype != "bfloat16":
+        raise NotImplementedError(
+            f"the fused CUDA kernel takes bfloat16 weights, not {opts.compute_dtype}; "
+            "set use_pallas_kernels False to run them through the plain version")
 
 
 def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions
@@ -147,16 +162,24 @@ def _composite(raw, z_vals, rays_d, opts: RenderOptions, generator):
                             plain=not opts.use_integrate_kernel)
 
 
-@torch.no_grad()
 def render_rays(params: Mapping[str, Dict[str, torch.Tensor]], rays_o: torch.Tensor,
                 rays_d: torch.Tensor, opts: RenderOptions,
                 grid: Optional[occ.OccupancyGrid] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> Dict[str, torch.Tensor]:
     """Hierarchical render of a [N, 3] ray batch. ``params``: {"coarse",
-    "fine"} kernel weights (``kernel_params``). Returns rgb_map_0 / disp_map_0
-    / acc_map_0 / depth_map_0 (coarse), rgb_map / ... (fine), the coarse and
-    fine weights and z values."""
-    plain_query = not opts.use_fused_mlp
+    "fine"}, kernel weights (``kernel_params``) or, to differentiate, the
+    standard MLP trees. Returns rgb_map_0 / disp_map_0 / acc_map_0 /
+    depth_map_0 (coarse), rgb_map / ... (fine), the coarse and fine weights
+    and z values. ``train``: random fine-sample positions, gradients on;
+    otherwise ``no_grad`` and deterministic fine samples."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        return _render_rays(params, rays_o, rays_d, opts, grid, generator, train)
+
+
+def _render_rays(params, rays_o, rays_d, opts: RenderOptions, grid, generator, train):
+    query_kw = dict(plain=not opts.use_fused_mlp, xyz_freqs=opts.xyz_freqs,
+                    dir_freqs=opts.dir_freqs, weight_dtype=_DTYPES[opts.compute_dtype])
     if opts.enable_ess and grid is not None:
         z_vals = occ.sample_coarse_with_ess(
             grid, rays_o, rays_d, opts.n_samples, opts.near, opts.far,
@@ -166,19 +189,22 @@ def render_rays(params: Mapping[str, Dict[str, torch.Tensor]], rays_o: torch.Ten
                                perturb=opts.perturb, lindisp=opts.lindisp,
                                generator=generator, device=rays_o.device)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., None]
-    raw = query_network(params["coarse"], pts, rays_d, plain=plain_query)
+    raw = query_network(params["coarse"], pts, rays_d, **query_kw)
     out_c = _composite(raw, z_vals.contiguous(), rays_d, opts, generator)
     ret = {"rgb_map_0": out_c["rgb_map"], "disp_map_0": out_c["disp_map"],
            "acc_map_0": out_c["acc_map"], "depth_map_0": out_c["depth_map"],
            "coarse_weights": out_c["weights"], "coarse_z_vals": z_vals}
     if opts.n_importance > 0:
         z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
-        z_fine = sample_pdf(z_mid, out_c["weights"][..., 1:-1], opts.n_importance,
-                            deterministic=True)
+        w_fine = out_c["weights"][..., 1:-1]
+        if opts.detach_fine_sampling:
+            z_mid, w_fine = z_mid.detach(), w_fine.detach()
+        z_fine = sample_pdf(z_mid, w_fine, opts.n_importance, deterministic=not train,
+                            generator=generator)
         z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
         pts_f = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., None]
-        raw_f = query_network(params["fine"], pts_f, rays_d, plain=plain_query)
-        out_f = _composite(raw_f, z_all, rays_d, opts, generator)
+        raw_f = query_network(params["fine"], pts_f, rays_d, **query_kw)
+        out_f = _composite(raw_f, z_all.contiguous(), rays_d, opts, generator)
         ret.update(rgb_map=out_f["rgb_map"], disp_map=out_f["disp_map"],
                    acc_map=out_f["acc_map"], depth_map=out_f["depth_map"],
                    fine_weights=out_f["weights"], fine_z_vals=z_all)

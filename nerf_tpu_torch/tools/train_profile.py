@@ -1,0 +1,111 @@
+"""Where a lego train step's time goes on the GPU, by torch.profiler.
+
+    python -m nerf_tpu_torch.tools.train_profile [--steps 20] [--warmup 5] [key value ...]
+
+Resumes the committed lego state (checkpoints/nerf/lego/nerf, epoch 49),
+builds the serving path's RenderService for its ESS grid and camera, renders
+8 orbit views of the model at 200x200 as the targets (as chip_smoke.py's
+phases 8-10 do), then times --steps warm train steps (configs/nerf/lego.yaml: 1024
+rays, 64 + 128 samples, bf16) twice: once by the host clock with a
+synchronize per step, once under torch.profiler. Prints ms per step, the
+device's busy share (the kernels' summed time over the profiled wall time)
+and the kernels and host operators that take the most time per step.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import make_cfg
+from ..render.renderer import RenderOptions
+from ..serve import RenderService, look_at_pose
+from ..train import loop
+from ..train.checkpoint import load_checkpoint
+from ..train.optim import make_optimizer
+from ..train.state import init_state, train_step
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", None)
+                 or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--steps", type=int, default=20)
+    parser.add_argument("--warmup", type=int, default=5)
+    parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("train_profile measures the GPU; no CUDA device found")
+    dev = torch.device("cuda")
+    model_dir = os.path.join(ROOT, "checkpoints/nerf/lego/nerf")
+    cfg = make_cfg(os.path.join(ROOT, "configs/nerf/lego.yaml"),
+                   ["trained_model_dir", model_dir, *args.opts])
+    opts = RenderOptions.from_cfg(cfg)
+    tx = make_optimizer(cfg)
+    template = init_state(loop.init_nerf_params(torch.Generator().manual_seed(0), opts, dev), tx)
+    state = load_checkpoint(model_dir, template)[0]
+    service = RenderService(cfg, size=200, device=dev)  # the ESS grid and the camera
+    grid, K = service.grid, service.K
+    thetas = [2 * math.pi * i / 8 for i in range(8)]
+    poses = torch.as_tensor(np.stack([look_at_pose(t, 0.3, 4.0) for t in thetas]), device=dev)
+    imgs = torch.stack([(service.render(t, 0.3, 4.0).clamp(0, 1) * 255).round().to(torch.uint8)
+                        for t in thetas])
+    n_rays = int(cfg.task_arg.N_rays)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def step():
+        train_step(state, imgs, poses, K, tx, opts, n_rays, grid, gen)
+
+    for _ in range(args.warmup):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(args.steps):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    w = np.array(times) * 1e3
+    print(f"{torch.cuda.get_device_name(0)}: {args.steps} steps, ms per step min {w.min():.3f} "
+          f"median {np.median(w):.3f} max {w.max():.3f}; {n_rays / np.median(w) * 1e3:.0f} "
+          f"train rays/s at the median")
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = prof.key_averages()
+    kernels = [e for e in events if _device_us(e) > 0 and e.device_type.name == "CUDA"]
+    if not kernels:
+        kernels = [e for e in events if _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    print(f"profiled: {wall * 1e3 / args.steps:.3f} ms per step (wall); kernels "
+          f"{busy / args.steps:.3f} ms per step, device busy {busy / (wall * 1e3):.3f} of the "
+          f"wall time, idle {1 - busy / (wall * 1e3):.3f}")
+    print("top kernels by device time (ms per step, launches per step):")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
+        print(f"  {_device_us(e) / 1e3 / args.steps:8.4f}  {e.count / args.steps:6.1f}  "
+              f"{e.key[:100]}")
+    cpu = [e for e in events if e.device_type.name == "CPU"]
+    print("top host operators by self CPU time (ms per step, calls per step):")
+    for e in sorted(cpu, key=lambda e: e.self_cpu_time_total, reverse=True)[:args.top]:
+        print(f"  {e.self_cpu_time_total / 1e3 / args.steps:8.4f}  {e.count / args.steps:6.1f}  "
+              f"{e.key[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

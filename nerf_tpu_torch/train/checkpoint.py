@@ -1,23 +1,33 @@
-"""Weight bridge from ``nerf_tpu`` checkpoints; counterpart of ``nerf_tpu/train/checkpoint.py``.
+"""Checkpoint I/O in ``nerf_tpu``'s format; counterpart of ``nerf_tpu/train/checkpoint.py``.
 
 A ``nerf_tpu`` checkpoint is one ``.npz`` of the flattened TrainState
 pytree, ``leaf_0 ... leaf_<n>``, in JAX's flatten order: dict keys sorted,
-lists in order, params first. For the hierarchical NeRF the params are
-{"coarse": mlp, "fine": mlp}, so leaves 0-23 are the coarse MLP and 24-47
-the fine one; what follows is optimizer state and is skipped. Within one
-MLP the order is alpha_linear{b, w}, feature_linear{b, w},
-pts_linears[0..D-1]{b, w}, rgb_linear{b, w}, views_linears[0]{b, w}.
+lists in order, params first, plus ``<tag>.json`` with the epoch and the
+recorder's state. For the hierarchical NeRF the params are {"coarse": mlp,
+"fine": mlp}, so leaves 0-23 are the coarse MLP and 24-47 the fine one.
+Within one MLP the order is alpha_linear{b, w}, feature_linear{b, w},
+pts_linears[0..D-1]{b, w}, rgb_linear{b, w}, views_linears[0]{b, w}. With
+Adam (or RAdam) the optimizer state follows: its count (48), mu (49-96), nu
+(97-144) and the schedule's count (145); then the step (146). With SGD only
+the schedule's count sits between the params and the step.
 
-Reading needs no JAX: the leaf order is rebuilt here from the model's shape.
+Reading and writing need no JAX: the leaf order is rebuilt here from the
+model's shape, and the files load in ``nerf_tpu.train.checkpoint`` as its
+own do.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
-from typing import Any, Dict, List, Tuple
+import shutil
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..models.nerf_mlp import NeRFMLP
+from ..tree import tree_flatten, tree_unflatten
 
 Tree = Dict[str, Any]
 
@@ -76,3 +86,84 @@ def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
 def from_jax_params(tree: Tree, skips=(4,)) -> Dict[str, NeRFMLP]:
     """{"coarse": mlp_tree, "fine": mlp_tree} of numpy arrays -> {name: NeRFMLP}."""
     return {name: NeRFMLP.from_tree(sub, skips=skips) for name, sub in tree.items()}
+
+
+def _state_leaves(state) -> list:
+    """A TrainState's leaves in JAX's order: params, optimizer state, step."""
+    return tree_flatten(state.params)[0] + state.opt_state.leaves() + [state.step]
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf, np.int32)  # the counters: int32 scalars, as JAX keeps them
+
+
+def save_checkpoint(model_dir: str, state, epoch: int, recorder_state: Optional[Dict] = None,
+                    latest: bool = True, keep: int = 5) -> None:
+    """Write ``<epoch>.npz/.json`` (and ``latest`` unless told not to), then
+    keep only the newest ``keep`` numbered checkpoints."""
+    os.makedirs(model_dir, exist_ok=True)
+    arrays = {f"leaf_{i}": _to_numpy(v) for i, v in enumerate(_state_leaves(state))}
+    meta = {"epoch": epoch, "recorder": recorder_state or {}}
+    for tag in [str(epoch)] + (["latest"] if latest else []):
+        np.savez(os.path.join(model_dir, f"{tag}.npz"), **arrays)
+        with open(os.path.join(model_dir, f"{tag}.json"), "w") as f:
+            json.dump(meta, f)
+    epochs = sorted(int(f[:-4]) for f in os.listdir(model_dir)
+                    if f.endswith(".npz") and f[:-4].isdigit())
+    for old in epochs[:-keep]:
+        for ext in (".npz", ".json"):
+            path = os.path.join(model_dir, f"{old}{ext}")
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def load_checkpoint(model_dir: str, template, tag: str = "latest"):
+    """Restore a TrainState shaped as ``template`` (its params' tree and
+    devices, its optimizer's kind). Returns (state, epoch, recorder_state),
+    or None when there is no checkpoint. Raises ``ValueError`` when the file
+    has another number of leaves or a leaf another shape."""
+    path = os.path.join(model_dir, f"{tag}.npz")
+    if not os.path.exists(path):
+        return None
+    want = _state_leaves(template)
+    with np.load(path) as data:
+        if len(data.files) != len(want):
+            raise ValueError(f"{path}: {len(data.files)} leaves, expected {len(want)}")
+        arrays = [data[f"leaf_{i}"] for i in range(len(want))]
+    leaves = []
+    for i, (arr, like) in enumerate(zip(arrays, want)):
+        if isinstance(like, torch.Tensor):
+            if arr.shape != tuple(like.shape):
+                raise ValueError(f"{path}: leaf_{i} has shape {arr.shape}, expected "
+                                 f"{tuple(like.shape)}")
+            leaves.append(torch.from_numpy(np.array(arr, np.float32)).to(like.device))
+        else:
+            if arr.shape != ():
+                raise ValueError(f"{path}: leaf_{i} has shape {arr.shape}, expected a counter")
+            leaves.append(int(arr))
+    n_params = len(tree_flatten(template.params)[0])
+    params_spec = tree_flatten(template.params)[1]
+    params = tree_unflatten(params_spec, [t.requires_grad_(True) for t in leaves[:n_params]])
+    opt = template.opt_state
+    rest = leaves[n_params:-1]
+    if opt.mu is None:
+        opt_state = dataclasses.replace(opt, sched_count=rest[0])
+    else:
+        n = len(opt.mu)
+        opt_state = dataclasses.replace(opt, count=rest[0], mu=rest[1:1 + n],
+                                        nu=rest[1 + n:1 + 2 * n], sched_count=rest[1 + 2 * n])
+    state = dataclasses.replace(template, params=params, opt_state=opt_state, step=leaves[-1])
+    meta = {"epoch": -1, "recorder": {}}
+    meta_path = os.path.join(model_dir, f"{tag}.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state, int(meta.get("epoch", -1)), meta.get("recorder", {})
+
+
+def wipe_dir(path: str) -> None:
+    """Remove a directory tree (a run that does not resume)."""
+    if os.path.exists(path):
+        shutil.rmtree(path)

@@ -11,7 +11,20 @@ Tolerances (as chip_smoke.py states them):
   between two sum orders touch ~1% of the outputs, so over a few hundred
   outputs the 99th percentile is one of them);
 - integrate, float32: atol 2e-5 (sums of up to 192 terms in another order);
-- a rendered image: PSNR >= 40 dB against the plain path.
+- a rendered image: PSNR >= 40 dB against the plain path;
+- fused backward (B2), bf16: every gradient leaf, dpts and ddirs within
+  1e-2 in relative norm of the plain version, and of the plain backward run
+  on the kernel's own recomputed forward (each layer's gradient is rounded
+  to bf16, 2^-9 relative, before its products; random points and upstream
+  gradients spread the gradient over every point);
+- one train step through the kernels against the plain versions: loss
+  within 1e-4 relative; each parameter's gradient within max(1e-2, 2x the
+  distance between the plain path and the plain path with float32 weights)
+  in relative norm. The kernel's forward sums in another order than the
+  plain one, so a ReLU mask can flip between them, and where a few points
+  carry the gradient (292 of 16,384 coarse samples here) one flip moved a
+  leaf by 11% on this test's first run; bf16's own distance from float32
+  bounds flips of that kind.
 """
 import dataclasses
 import math
@@ -22,12 +35,12 @@ import pytest
 import torch
 
 from nerf_tpu_torch.config import make_cfg
-from nerf_tpu_torch.ops import fused_mlp
+from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd
 from nerf_tpu_torch.ops import integrate as tint
 from nerf_tpu_torch.render.renderer import RenderOptions, kernel_params, render_rays
 from nerf_tpu_torch.serve import RenderService, look_at_pose
 from nerf_tpu_torch.render.rays import image_rays
-from nerf_tpu_torch.train.checkpoint import load_params
+from nerf_tpu_torch.train.checkpoint import load_checkpoint, load_params
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 LEGO = os.path.join(ROOT, "checkpoints", "nerf", "lego", "nerf")
@@ -138,3 +151,88 @@ def test_render_service_defaults_to_the_gpu(cuda):
     assert bool(torch.isfinite(rgb).all())
     assert fused_mlp.fused_nerf_eval.launches > before[0]
     assert tint.integrate.launches > before[1]
+
+
+def _rel_norm(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 64, 1000, 65536])  # ragged tiles of 64 points
+def test_fused_backward_matches_plain(lego, cuda, n):
+    kp = {k: v.to(cuda) for k, v in fused_mlp.repack_params(lego["fine"]).items()}
+    pts, d = _points(n, n + 1, cuda)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 4)).astype(np.float32)).to(cuda)
+    before = fused_mlp_bwd.fused_nerf_bwd.launches
+    got = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    want = fused_mlp_bwd.fused_nerf_bwd_plain(kp, pts, d, g)
+    torch.cuda.synchronize()
+    assert fused_mlp_bwd.fused_nerf_bwd.launches == before + 1
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        assert got[0][k].shape == want[0][k].shape, k
+        assert _rel_norm(got[0][k], want[0][k]) <= 1e-2, k
+    assert got[1].shape == (n, 3) and got[2].shape == (n, 3)
+    assert _rel_norm(got[1], want[1]) <= 1e-2 and _rel_norm(got[2], want[2]) <= 1e-2
+    no_inputs = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g, input_grads=False)
+    assert no_inputs[1] is None and no_inputs[2] is None
+    for k in fused_mlp_bwd._GRAD_KEYS:  # the same launches, without the input gradients
+        torch.testing.assert_close(no_inputs[0][k], got[0][k], rtol=0, atol=0, msg=k)
+    kgrads, dpts, ddirs, stash = fused_mlp_bwd.launch(kp, pts, d, g)
+    acts = fused_mlp_bwd.stash_activations(kp, stash, pts, d)
+    own = fused_mlp_bwd.backward_from_activations(kp, acts, g)
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        assert _rel_norm(kgrads[k], own[0][k]) <= 1e-2, k
+    assert _rel_norm(dpts, own[1]) <= 1e-2 and _rel_norm(ddirs, own[2]) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_fused_backward_rejects_what_it_cannot_take(lego, cuda):
+    kp = fused_mlp.repack_params(lego["coarse"])
+    pts, d = _points(8, 0, cuda)
+    g = torch.zeros((8, 4), device=cuda)
+    with pytest.raises(ValueError, match="wbuf"):  # weights left on the CPU
+        fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    kp = {k: v.to(cuda) for k, v in kp.items()}
+    with pytest.raises(ValueError, match="^g:"):
+        fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g.double())
+    with pytest.raises(ValueError, match="^g:"):
+        fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g[:, :3].contiguous())
+    with pytest.raises(ValueError, match="^dirs:"):
+        fused_mlp_bwd.fused_nerf_bwd(kp, pts, d.cpu(), g)
+
+
+@pytest.mark.cuda
+def test_train_step_kernels_match_plain(cuda, tmp_path):
+    from nerf_tpu_torch.render.renderer import RenderOptions as RO
+    from nerf_tpu_torch.train import loop
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import init_state, loss_and_grads, sample_ray_batch
+
+    cfg = make_cfg(os.path.join(ROOT, "configs/nerf/lego.yaml"), ["occupancy_grid_resolution", "32"])
+    opts = RO.from_cfg(cfg)
+    template = init_state(loop.init_nerf_params(torch.Generator().manual_seed(0), opts, cuda),
+                          make_optimizer(cfg))
+    state, epoch, _ = load_checkpoint(LEGO, template)
+    assert epoch == 49 and state.step == 12500
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    imgs = torch.randint(0, 256, (2, 32, 32, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    poses = torch.as_tensor(np.stack([look_at_pose(t, 0.3, 4.0) for t in (0.5, 2.0)]),
+                            device=cuda)
+    K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], device=cuda)
+    ro, rd, tgt = sample_ray_batch(gen, imgs, poses, K, 256)
+    rng = gen.get_state()
+    before = (fused_mlp.fused_nerf_eval.launches, fused_mlp_bwd.fused_nerf_bwd.launches,
+              tint.integrate.launches)
+    lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, None, gen)
+    after = (fused_mlp.fused_nerf_eval.launches, fused_mlp_bwd.fused_nerf_bwd.launches,
+             tint.integrate.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 2]
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    gen.set_state(rng)
+    lp, _, gp = loss_and_grads(state.params, ro, rd, tgt, plain, None, gen)
+    gen.set_state(rng)
+    _, _, g32 = loss_and_grads(state.params, ro, rd, tgt,
+                               dataclasses.replace(plain, compute_dtype="float32"), None, gen)
+    assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        assert _rel_norm(a, b) <= max(1e-2, 2.0 * _rel_norm(b, c)), i
