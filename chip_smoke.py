@@ -39,7 +39,31 @@ Phases, each printed with its elapsed seconds:
      state with the same batches;
  10. times: a window of warm train steps (ms per step, train rays/s, the
      kernels' launches per step) and B2 on the fine batch beside its bound
-     and its plain version.
+     and its plain version;
+ 11. the hash-grid model, configs/nerf/lego_hashgrid_cellpack.yaml at full
+     width (16 levels x 2 features, 2^19 cellpack tables of [16, 65536, 16]
+     bf16, the 4x128 MLP), trained from init_hashgrid tables through the
+     trainer's entry point on the same synthetic scene: one epoch cut to
+     HASH_TRAIN_STEPS steps of 1024 rays (the config has 500), an ESS rebuild
+     through the hash density, a checkpoint of 105 leaves in a temp directory;
+     the counters are zeroed before and read after, and the gather, its
+     scatter-add and integrate must have been launched;
+ 12. that checkpoint served by RenderService at 200x200 over HTTP: one
+     warm-up request and a timed window of HASH_N_TIMED requests; then the
+     gather and integrate against their plain versions on the first and the
+     last render tile's own indices, rows and samples, and the frame through
+     the kernels against the frame through the plain versions (PSNR >= 40);
+ 13. one hash-grid train step on random colours at 8 orbit poses:
+     the scatter-add on the step's own fine indices and cotangents against
+     its plain version, and the whole step (loss and every gradient) through
+     the kernels against the plain versions;
+ 14. times: a window of warm hash-grid train steps, and the gather and the
+     scatter-add on that step's fine batch (3,145,728 rows) beside their
+     bounds, their plain versions and one PyTorch call each.
+Phase 3 also holds the gather (exact) and the scatter-add against their
+plain versions on random tables of the config's sizes (cellpack, and the
+corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
+encoder indexes random points.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 """
@@ -114,6 +138,26 @@ PEAK_BYTES = 3.35e12
 #   so the small gradient differences above move the parameters apart and
 #   the gap grows step by step; how far bf16 itself moves the trajectory
 #   bounds that growth.
+# - hash-table gather (B4): exact, on random tables and on the path's rows.
+# - its scatter-add: per element within hash_gather.scatter_add_tolerance
+#   of the plain version (index_add_ into float32, rounded once to bf16):
+#   two float32 sums of the same n terms in other orders lie within
+#   2.01 n 2^-24 S of each other (S the terms' summed magnitudes), and each
+#   rounds once to bf16 (2^-8). The kernel's float32 atomics add in an order
+#   that changes from run to run, so its last bits do too.
+# - one hash-grid train step, kernels against plain versions: loss within
+#   1e-4 relative; every gradient within max(1e-2, 2x its distance between
+#   the plain path and the plain path with float32 MLP weights) in relative
+#   norm. The gather is exact, but B3's float32 sums move the coarse weights
+#   by ~1e-7, and with them the random fine samples drawn from them; on this
+#   script's second run the losses agreed to float32 resolution, yet the
+#   coarse alpha_linear's gradient came out 2.8% apart (and a leaf 10% on the
+#   third): such a gradient sums 65,536 points' terms of both signs that
+#   nearly cancel, so points moved by 1e-7 move it far in relative terms,
+#   while the plain path run twice agrees to 1e-6 (the line shows both).
+#   bf16's own distance from float32 bounds such differences, as for the
+#   lego step above. The tables' gradients also differ by their bf16
+#   rounding after float32 sums in other orders (2^-8 relative).
 FUSED_P99_REL, FUSED_P999_REL, FUSED_MAX_OVER_PLAIN64 = 1e-3, 1e-2, 2.0
 INTEGRATE_ATOL = 2e-5
 PSNR_MIN_DB = 40.0
@@ -134,6 +178,14 @@ FUSED_IO_BYTES = 40  # pts, dirs in (24 B), raw out (16 B)
 SIZE = 200
 THETA0, PHI, RADIUS = 0.5, 0.3, 4.0  # the warm-up pose, rendered again in phase 6
 N_TIMED = 32  # requests in the timed serving window, at thetas spread over the orbit
+HASH_STEP_LOSS_REL, HASH_GRAD_REL = 1e-4, 1e-2
+HASH_TRAIN_STEPS, HASH_STEP_WINDOW, HASH_N_TIMED = 200, 20, 16
+HASH_ROWS = 3_145_728  # a train step's fine batch: 1024 rays x 192 samples x 16 levels
+# the hash-grid phases override only the dataset and the cadence
+HASH_TRAIN_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "100",
+                        "train_dataset.H", "800", "train_dataset.W", "800", "train.epoch", "1",
+                        "ep_iter", str(HASH_TRAIN_STEPS), "grid_rebuild_ep", "1",
+                        "save_latest_ep", "1"]
 
 
 def log(msg: str) -> None:
@@ -243,32 +295,29 @@ def random_phase(kp, dev):
     return fused_errs, integrate_err
 
 
-def serve_phase(dev, root):
+def serve_phase(dev, cfg, counters, n_timed=N_TIMED):
     """Drive the serving path through its entry points: build the service,
-    one warm-up request, then a timed window of N_TIMED requests."""
+    one warm-up request, then a timed window of n_timed requests. The
+    counters are zeroed first; each must have counted a launch by the end."""
     import numpy as np
     import torch
-    from nerf_tpu_torch.config import make_cfg
-    from nerf_tpu_torch.ops import fused_mlp, integrate as tint
     from nerf_tpu_torch.serve import RenderService, decode_png, make_server
 
-    cfg = make_cfg(os.path.join(root, "configs/nerf/lego.yaml"),
-                   ["trained_model_dir", os.path.join(root, "checkpoints/nerf/lego/nerf")])
-    fused_mlp.fused_nerf_eval.launches = 0
-    tint.integrate.launches = 0
+    for c in counters.values():
+        c.launches = 0
     t = time.perf_counter()
     service = RenderService(cfg, size=SIZE, device=dev)
     torch.cuda.synchronize()
     populate_s = time.perf_counter() - t
-    populate_launches = fused_mlp.fused_nerf_eval.launches
+    populate_launches = {k: c.launches for k, c in counters.items()}
     log(f"RenderService on {dev}: {populate_s:.3f} s including the ESS rebuild at "
-        f"R={service.grid.resolution} ({populate_launches} fused launches), occupied "
+        f"R={service.grid.resolution} (launches {populate_launches}), occupied "
         f"{float(service.grid.occupied.float().mean()):.4f}")
 
     server = make_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    thetas = [THETA0] + [THETA0 + 2.0 * math.pi * i / N_TIMED for i in range(N_TIMED)]
+    thetas = [THETA0] + [THETA0 + 2.0 * math.pi * i / n_timed for i in range(n_timed)]
     bodies, times = [], []
     try:
         port = server.server_address[1]
@@ -290,11 +339,9 @@ def serve_phase(dev, root):
         thread.join(timeout=30)
     check(not thread.is_alive(), "server thread did not stop")
     check(service.errors == 0, f"{service.errors} /frame errors")
-    launches = {"fused_nerf_eval": fused_mlp.fused_nerf_eval.launches,
-                "integrate": tint.integrate.launches}
-    log(f"launches on the serving path: {launches} (fused: {populate_launches} in the "
-        f"ESS rebuild, {launches['fused_nerf_eval'] - populate_launches} in "
-        f"{len(thetas)} requests)")
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"launches on the serving path: {launches} ({populate_launches} in the ESS rebuild, "
+        f"the rest in {len(thetas)} requests)")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched by the path")
 
     frames = []
@@ -309,12 +356,12 @@ def serve_phase(dev, root):
         f"{min(means):.4f}..{max(means):.4f}")
     w = np.array(times[1:]) * 1e3
     log(f"serving {SIZE}x{SIZE}: startup {populate_s * 1e3:.1f} ms (service) + "
-        f"{times[0] * 1e3:.1f} ms (first request); window of {N_TIMED} requests "
-        f"{window_s:.4f} s, {window_s * 1e3 / N_TIMED:.2f} ms per request, "
-        f"{N_TIMED * SIZE * SIZE / window_s:.0f} rays/s; per request min {w.min():.2f}, "
+        f"{times[0] * 1e3:.1f} ms (first request); window of {n_timed} requests "
+        f"{window_s:.4f} s, {window_s * 1e3 / n_timed:.2f} ms per request, "
+        f"{n_timed * SIZE * SIZE / window_s:.0f} rays/s; per request min {w.min():.2f}, "
         f"median {np.median(w):.2f}, p90 {np.percentile(w, 90):.2f}, max {w.max():.2f}, "
         f"std {w.std():.2f} ms")
-    return service, frames[0], launches
+    return service, frames[0], launches, window_s * 1e3 / n_timed
 
 
 def path_phase(service, random_errs):
@@ -430,6 +477,42 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
+def _drive_trainer(cfg_file, opts, counters):
+    """Run the trainer's entry point in-process with the counters zeroed.
+    Returns (state, grid, launches, its log, seconds)."""
+    import torch
+    from nerf_tpu_torch.train.__main__ import main as train_main
+
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        state, grid = train_main(["--cfg_file", cfg_file, *opts])
+    torch.cuda.synchronize()
+    return (state, grid, {k: c.launches for k, c in counters.items()}, buf.getvalue(),
+            time.perf_counter() - t)
+
+
+@contextlib.contextmanager
+def _spy(module, name):
+    """Record the (args, kwargs) of every call of module.name inside the
+    block; the spy carries its own ``launches`` (the wrappers count on the
+    module-level name they are bound to)."""
+    seen, real = [], getattr(module, name)
+
+    def spy(*args, **kwargs):
+        seen.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    spy.launches = 0
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
 def _counters():
     from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd, integrate as tint
 
@@ -441,9 +524,7 @@ def train_phase(root, tmp):
     """Resume the committed lego state through the trainer's entry point and
     train one epoch; check its log and its checkpoint."""
     import numpy as np
-    import torch
     from nerf_tpu_torch.config import make_cfg
-    from nerf_tpu_torch.train.__main__ import main as train_main
     from nerf_tpu_torch.train.checkpoint import load_checkpoint
 
     model_dir = os.path.join(tmp, "model")
@@ -455,21 +536,12 @@ def train_phase(root, tmp):
         step0 = int(data["leaf_146"])
     opts = [*TRAIN_OVERRIDES, "trained_model_dir", model_dir,
             "record_dir", os.path.join(tmp, "record")]
-    cfg = make_cfg(os.path.join(root, "configs/nerf/lego.yaml"), opts)
-    for c in _counters().values():
-        c.launches = 0
-    buf = io.StringIO()
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
-        state, grid = train_main(["--cfg_file", os.path.join(root, "configs/nerf/lego.yaml"),
-                                  *opts])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t
-    launches = {k: c.launches for k, c in _counters().items()}
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    cfg = make_cfg(cfg_file, opts)
+    state, grid, launches, text, train_s = _drive_trainer(cfg_file, opts, _counters())
     log(f"train entry point: {train_s:.2f} s (data, resume, {TRAIN_STEPS} steps, ESS rebuild, "
         f"checkpoint); launches {launches}")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched by the train path")
-    text = buf.getvalue()
     losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
     check(len(losses) == TRAIN_STEPS // 50 and all(math.isfinite(v) for v in losses),
           f"logged losses {losses}")
@@ -497,10 +569,10 @@ def _clone_state(state):
                       step=state.step)
 
 
-def _lego_views(service, n_views: int = 8):
-    """(images_u8, poses, K) of the committed lego model's own renders at
-    n_views poses of the serving orbit: targets the resumed model explains,
-    so that a step is one of continued lego training."""
+def _model_views(service, n_views: int = 8):
+    """(images_u8, poses, K) of the served model's own renders at n_views
+    poses of the serving orbit: targets the model explains, so that a step
+    is one of continued training."""
     import numpy as np
     import torch
     from nerf_tpu_torch.serve import look_at_pose
@@ -534,18 +606,9 @@ def grads_phase(cfg, state, grid, data, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     ro, rd, tgt = sample_ray_batch(gen, *data, int(cfg.task_arg.N_rays))
     rng = gen.get_state()
-    seen, real = [], fb.fused_nerf_bwd
-
-    def record(kp, pts, dirs, g, input_grads=True):
-        seen.append((kp, pts, dirs, g))
-        return real(kp, pts, dirs, g, input_grads)
-
-    record.launches = 0  # the wrapper counts on the name it is bound to
-    fb.fused_nerf_bwd = record
-    try:
+    with _spy(fb, "fused_nerf_bwd") as calls:
         lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen)
-    finally:
-        fb.fused_nerf_bwd = real
+    seen = [args[:4] for args, _ in calls]
     step = {}
     for name, o in (("plain", plain), ("plain32", plain32)):
         gen.set_state(rng)
@@ -709,6 +772,276 @@ def train_times_phase(cfg, state, grid, data, dev, fine):
             else "bytes"}
 
 
+def _hash_counters():
+    from nerf_tpu_torch.ops import hash_gather, integrate as tint
+
+    return {"hash_gather_rows": hash_gather.gather_rows,
+            "hash_scatter_add_rows": hash_gather.scatter_add_rows, "integrate": tint.integrate}
+
+
+def _pattern_rows(dev, layout, n_rows_wanted, gen):
+    """The hash encoder's own row indices for random points in the bbox, at
+    the config's geometry, cut to n_rows_wanted (level-major)."""
+    import torch
+    from nerf_tpu_torch.models.hashgrid import hashgrid_index, level_resolutions, table_shape
+
+    shape = table_shape(16, 2, 19, layout)
+    per_point = 16 * (1 if layout == "cellpack" else 8)
+    n_pts = -(-n_rows_wanted // per_point)
+    pts = torch.rand((n_pts, 3), generator=gen, device=dev) * 3.0 - 1.5
+    idx, _ = hashgrid_index(shape, pts, level_resolutions(), layout=layout)
+    return shape, idx[:n_rows_wanted].contiguous()
+
+
+def scatter_errors(label, idx, cot, n_rows):
+    """Hold scatter_add_rows against its plain version; returns max abs err."""
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+
+    got = hash_gather.scatter_add_rows(idx, cot, n_rows)
+    want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
+    tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    worst = float((err / tol.clamp_min(1e-30)).max())
+    log(f"scatter_add_rows {label}: {idx.shape[0]} rows of {cot.shape[1]} {cot.dtype} into "
+        f"{n_rows}: max abs err {float(err.max()):.4g}, {int((err > 0).sum())} elements differ, "
+        f"worst err / tolerance {worst:.3g} (float32 atomics: the order varies from run to run)")
+    check(got.dtype == cot.dtype and worst <= 1.0,
+          f"scatter_add_rows disagrees with scatter_add_rows_plain on {label}")
+    return float(err.max())
+
+
+def gather_errors(label, table, idx):
+    """Hold gather_rows against its plain version: exact. Returns 0.0."""
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+
+    got = hash_gather.gather_rows(table, idx)
+    want = hash_gather.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    log(f"gather_rows {label}: {idx.shape[0]} rows of {table.shape[1]} {table.dtype} from "
+        f"{table.shape[0]}: {'exact' if same else 'DIFFERS'}")
+    check(same, f"gather_rows disagrees with gather_rows_plain on {label}")
+    return 0.0
+
+
+def hash_random_phase(dev):
+    """B4 and its scatter-add on random tables of the config's sizes, at a
+    train step's fine-batch row count with the encoder's index pattern."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = {"gather": 0.0, "scatter": 0.0}
+    for layout in ("cellpack", "corner"):
+        shape, idx = _pattern_rows(dev, layout, HASH_ROWS, gen)
+        table = (torch.rand((shape[0] * shape[1], shape[2]), generator=gen, device=dev) * 2
+                 - 1).to(torch.bfloat16)
+        errs["gather"] = max(errs["gather"], gather_errors(f"random {layout}", table, idx))
+        cot = torch.randn((idx.shape[0], shape[2]), generator=gen, device=dev).to(torch.bfloat16)
+        errs["scatter"] = max(errs["scatter"], scatter_errors(f"random {layout}", idx, cot,
+                                                              table.shape[0]))
+        counts = torch.bincount(idx.long(), minlength=table.shape[0])
+        log(f"{layout}: {int((counts > 0).sum())} distinct rows of {idx.shape[0]}, the most "
+            f"used {int(counts.max())} times")
+    return errs
+
+
+def hash_train_phase(root, tmp):
+    """Train the hash-grid config from init tables through the entry point."""
+    import numpy as np
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg_file = os.path.join(root, "configs/nerf/lego_hashgrid_cellpack.yaml")
+    model_dir = os.path.join(tmp, "hash_model")
+    opts = [*HASH_TRAIN_OVERRIDES, "trained_model_dir", model_dir,
+            "record_dir", os.path.join(tmp, "hash_record")]
+    cfg = make_cfg(cfg_file, opts)
+    state, grid, launches, text, train_s = _drive_trainer(cfg_file, opts, _hash_counters())
+    log(f"hash-grid train entry point: {train_s:.2f} s (data, init, {HASH_TRAIN_STEPS} steps, "
+        f"ESS rebuild, checkpoint); launches {launches}")
+    check(all(v > 0 for v in launches.values()), "a kernel was not launched by the hash path")
+    losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
+    chunk = int(cfg.get("scan_chunk", 50))
+    check(len(losses) == -(-HASH_TRAIN_STEPS // chunk) and all(math.isfinite(v) for v in losses),
+          f"logged losses {losses}")
+    log(f"{len(losses)} logged losses, all finite: {losses[0]:.5f} ... {losses[-1]:.5f}")
+    with np.load(os.path.join(model_dir, "latest.npz")) as data:
+        n_leaves, step = len(data.files), int(data["leaf_104"])
+        table_kind = data["leaf_16"].dtype.kind
+    check(n_leaves == 105 and step == HASH_TRAIN_STEPS and table_kind == "V",
+          f"checkpoint: {n_leaves} leaves, step {step}, table {table_kind}")
+    back = load_checkpoint(model_dir, state)
+    check(back is not None and back[0].step == step and back[1] == 0,
+          "the hash-grid checkpoint does not load back through load_checkpoint")
+    log(f"checkpoint: 105 leaves, step {step}, bf16 tables; loads back")
+    return cfg, state, grid, launches
+
+
+def hash_path_phase(service):
+    """The gather and integrate against their plain versions on the first
+    and the last render tile's own inputs, spied from the render itself."""
+    import torch
+    from nerf_tpu_torch.ops import hash_gather, integrate as tint
+    from nerf_tpu_torch.render.rays import image_rays
+    from nerf_tpu_torch.render.renderer import render_rays
+    from nerf_tpu_torch.serve import look_at_pose
+
+    dev, opts = service.device, service.opts
+    pose = torch.as_tensor(look_at_pose(THETA0, PHI, RADIUS), device=dev)
+    ro, rd = image_rays(SIZE, SIZE, service.K, pose)
+    with _spy(hash_gather, "gather_rows") as seen_g, _spy(tint, "integrate") as seen_i:
+        n = ro.shape[0]
+        for t0 in (0, (n - 1) // opts.tile_rays * opts.tile_rays):
+            sl = slice(t0, t0 + opts.tile_rays)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            render_rays(service.params, ro[sl].contiguous(), rd[sl].contiguous(), opts,
+                        grid=service.grid, generator=gen)
+    check(len(seen_g) == 4 and len(seen_i) == 4, f"{len(seen_g)} gathers, {len(seen_i)} "
+          "integrates in two tiles, expected 4 and 4")
+    names = ["first tile coarse", "first tile fine", "last tile coarse", "last tile fine"]
+    for label, (args, _) in zip(names, seen_g):
+        gather_errors(label, *args)
+    err = 0.0
+    for label, (args, kw) in zip(names, seen_i):
+        err = max(err, integrate_errors(f"hash {label}", *args[:3], kw["ert_threshold"],
+                                        kw["sigma_activation"]))
+    return err
+
+
+def hash_grads_phase(cfg, state, grid, data, dev):
+    """The scatter-add on one step's own fine inputs, and the whole step,
+    kernels against plain. Returns the fine batch's gather and scatter inputs."""
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch
+
+    opts = RenderOptions.from_cfg(cfg)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ro, rd, tgt = sample_ray_batch(gen, *data, int(cfg.task_arg.N_rays))
+    rng = gen.get_state()
+    with _spy(hash_gather, "gather_rows") as seen_g, \
+            _spy(hash_gather, "scatter_add_rows") as seen_s:
+        lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen)
+    seen_g, seen_s = [a for a, _ in seen_g], [a for a, _ in seen_s]
+    step = {}
+    for name, o in (("plain", plain), ("again", plain),
+                    ("plain32", dataclasses.replace(plain, compute_dtype="float32"))):
+        gen.set_state(rng)
+        step[name] = loss_and_grads(state.params, ro, rd, tgt, o, grid, gen)
+    torch.cuda.synchronize()
+    check(len(seen_g) == 2 and len(seen_s) == 2,
+          f"{len(seen_g)} gathers and {len(seen_s)} scatter-adds in one step, expected 2 and 2")
+    fine_s = max(seen_s, key=lambda c: c[0].shape[0])
+    fine_g = max(seen_g, key=lambda c: c[1].shape[0])
+    check(fine_s[0].shape[0] == HASH_ROWS, f"fine batch of {fine_s[0].shape[0]} rows")
+    scatter_err = max(scatter_errors(f"train step {lbl}", *c) for lbl, c in
+                      zip(("coarse", "fine"), sorted(seen_s, key=lambda c: c[0].shape[0])))
+    (lp, _, gp), (_, _, g32) = step["plain"], step["plain32"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    ratios = []
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        e, spread = _rel(a, b)[0], _rel(b, c)[0]
+        ratios.append((e / max(HASH_GRAD_REL, OVER_BF16_SPREAD * spread), i, e, spread))
+    r, i, e, spread = max(ratios)
+    errs = sorted(x[2] for x in ratios)
+    again = _rel(step["again"][2][i], gp[i])[0]
+    log(f"hash train step, kernels vs plain on one batch: loss {float(lk):.7f} vs "
+        f"{float(lp):.7f} (rel {loss_rel:.3g}, tol {HASH_STEP_LOSS_REL}); gradients of "
+        f"{len(gk)} leaves: relative norm err median {errs[len(errs) // 2]:.4g}, max "
+        f"{errs[-1]:.4g}; the tables' (16, 33): {ratios[16][2]:.4g}, {ratios[33][2]:.4g}; worst "
+        f"against bf16's own spread: leaf {i}, {e:.4g} against {spread:.4g} (tol "
+        f"max({HASH_GRAD_REL}, {OVER_BF16_SPREAD} x)); the plain path run again: {again:.4g}")
+    check(math.isfinite(float(lk)) and loss_rel <= HASH_STEP_LOSS_REL,
+          "hash train step loss disagrees")
+    check(r <= 1.0, "hash train step gradients disagree")
+    return scatter_err, fine_g, fine_s
+
+
+def hash_times_phase(cfg, state, grid, data, dev, fine_g, fine_s):
+    """A window of warm hash-grid train steps; the gather and the scatter-add
+    on the fine batch beside their bounds, plain versions and library calls."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import train_step
+
+    opts = RenderOptions.from_cfg(cfg)
+    tx = make_optimizer(cfg)
+    n_rays = int(cfg.task_arg.N_rays)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for _ in range(3):
+        train_step(state, *data, tx, opts, n_rays, grid, gen)
+    torch.cuda.synchronize()
+    for c in _hash_counters().values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(HASH_STEP_WINDOW):
+        t = time.perf_counter()
+        train_step(state, *data, tx, opts, n_rays, grid, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    window = time.perf_counter() - t0
+    per_step = {k: c.launches / HASH_STEP_WINDOW for k, c in _hash_counters().items()}
+    w = np.array(times) * 1e3
+    step_ms = window * 1e3 / HASH_STEP_WINDOW
+    log(f"hash train step window of {HASH_STEP_WINDOW} warm steps: {step_ms:.3f} ms per step, "
+        f"{n_rays * HASH_STEP_WINDOW / window:.0f} train rays/s; per step min {w.min():.3f}, "
+        f"median {np.median(w):.3f}, max {w.max():.3f}, std {w.std():.3f} ms; launches per "
+        f"step {per_step}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    table, idx = fine_g
+    n = idx.shape[0]
+    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=dev)
+    lib, stream = hash_gather._lib(), torch.cuda.current_stream().cuda_stream
+    row_b = table.shape[1] * table.element_size()
+    gargs = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n, row_b, stream)
+    check(lib.launch_gather_rows(*gargs) == 0, "launch_gather_rows failed")
+    ms = time_ms(lambda: lib.launch_gather_rows(*gargs), reps=50)
+    plain_ms = time_ms(lambda: hash_gather.gather_rows_plain(table, idx), reps=20)
+    library_ms = time_ms(lambda: torch.index_select(table, 0, idx), reps=20)
+    distinct = int(torch.unique(idx).numel())
+    # bytes these inputs need: each index once, each distinct row once (a
+    # 32-byte sector), each gathered row written once
+    nbytes = 4 * n + distinct * row_b + n * row_b
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"gather_rows fine batch, {n} rows of {row_b} B ({distinct} distinct): kernel "
+        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the bound's bytes), plain "
+        f"{plain_ms:.4f} ms, torch.index_select {library_ms:.4f} ms, bound {bound:.4f} ms "
+        f"(HBM; the 33.5 MB table fits the 50 MB L2, so repeated rows cost less than this)")
+    gather = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+              "library_ms": library_ms}
+
+    sidx, cot, n_rows = fine_s
+    width = cot.shape[1]
+    acc = torch.empty((n_rows, width), device=dev)
+    res = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
+    sargs = (sidx.data_ptr(), cot.data_ptr(), acc.data_ptr(), res.data_ptr(), n_rows, n, width,
+             int(cot.dtype == torch.bfloat16), stream)
+    check(lib.launch_scatter_add_rows(*sargs) == 0, "launch_scatter_add_rows failed")
+    sms = time_ms(lambda: lib.launch_scatter_add_rows(*sargs), reps=50)
+    splain_ms = time_ms(lambda: hash_gather.scatter_add_rows_plain(sidx, cot, n_rows), reps=20)
+    lib_buf = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
+    slib_ms = time_ms(lambda: lib_buf.zero_().index_add_(0, sidx, cot), reps=20)
+    # indices and cotangent rows read once, the gradient table written once
+    snbytes = 4 * n + n * width * cot.element_size() + n_rows * width * cot.element_size()
+    sbound = snbytes / PEAK_BYTES * 1e3
+    log(f"scatter_add_rows fine batch, {n} rows of {width} {cot.dtype} into {n_rows}: kernel "
+        f"{sms:.4f} ms (memset, atomics, rounding), plain {splain_ms:.4f} ms, index_add_ in "
+        f"bf16 {slib_ms:.4f} ms, bound {sbound:.4f} ms")
+    scatter = {"ms": sms, "plain_ms": splain_ms, "bound_ms": sbound, "bound_by": "bytes",
+               "library_ms": slib_ms}
+    return gather, scatter, step_ms
+
+
 def main() -> int:
     import torch
 
@@ -717,7 +1050,8 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from nerf_tpu_torch.ops import build, fused_mlp
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import build, fused_mlp, integrate
     from nerf_tpu_torch.train.checkpoint import load_checkpoint, load_params
 
     dev = torch.device("cuda")
@@ -740,9 +1074,14 @@ def main() -> int:
     params = load_params(os.path.join(root, "checkpoints/nerf/lego/nerf"))
     kp = {k: v.to(dev) for k, v in fused_mlp.repack_params(params["coarse"]).items()}
     random_errs = random_phase(kp, dev)
+    hash_errs = hash_random_phase(dev)
 
     log("phase 4: serve")
-    service, first_png, launches = serve_phase(dev, root)
+    lego_cfg = make_cfg(os.path.join(root, "configs/nerf/lego.yaml"),
+                        ["trained_model_dir", os.path.join(root, "checkpoints/nerf/lego/nerf")])
+    service, first_png, launches, _ = serve_phase(
+        dev, lego_cfg, {"fused_nerf_eval": fused_mlp.fused_nerf_eval,
+                        "integrate": integrate.integrate})
 
     log("phase 5: kernels against their plain versions on the serving path's inputs")
     kernels = path_phase(service, random_errs)
@@ -764,7 +1103,7 @@ def main() -> int:
     # after 8, on this script's first run)
     state = load_checkpoint(os.path.join(root, "checkpoints/nerf/lego/nerf"), state)[0]
     grid = service.grid
-    data = _lego_views(service)
+    data = _model_views(service)
     log("phase 8: the backward kernel and a whole step against their plain versions")
     bwd_err, fine = grads_phase(cfg, state, grid, data, dev)
     log("phase 9: trajectory")
@@ -779,7 +1118,43 @@ def main() -> int:
     for k in kernels:
         k["launches"] = train_launches[k["name"]]
 
-    log("phase 11: done")
+    log("phase 11: train the hash-grid model through the entry point")
+    with tempfile.TemporaryDirectory() as tmp:
+        hcfg, hstate, _, hash_launches = hash_train_phase(root, tmp)
+        log("phase 12: serve the hash-grid checkpoint")
+        hservice, _, hserve_launches, request_ms = serve_phase(
+            dev, hcfg, {k: c for k, c in _hash_counters().items()
+                        if k != "hash_scatter_add_rows"}, n_timed=HASH_N_TIMED)
+    hash_int_err = hash_path_phase(hservice)
+    plain_phase(hservice)
+    log("phase 13: the scatter-add and a whole hash-grid step against their plain versions")
+    # noise targets at the orbit's poses: the hash model trained on the noise
+    # scene renders their mean gray, so its own renders would leave a loss
+    # of 1e-4 and gradients too small to compare (4% apart on the first run)
+    imgs, poses, K = _model_views(hservice)
+    hdata = (torch.randint(0, 256, imgs.shape, dtype=torch.uint8, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(5)), poses, K)
+    scatter_err, fine_g, fine_s = hash_grads_phase(hcfg, hstate, hservice.grid, hdata, dev)
+    log("phase 14: hash-grid times")
+    gather_t, scatter_t, step_ms = hash_times_phase(hcfg, hstate, hservice.grid, hdata, dev,
+                                                    fine_g, fine_s)
+    log(f"hash-grid model on {smi}: {step_ms:.3f} ms per train step (1024 rays), "
+        f"{request_ms:.2f} ms per {SIZE}x{SIZE} request; launches on its serving path "
+        f"{hserve_launches}, on its train path {hash_launches}")
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], hash_int_err)
+    kernels.append({"name": "hash_gather_rows", "route": "cuda",
+                    "source": "nerf_tpu_torch/csrc/hash_gather.cu",
+                    "replaces": "nerf_tpu/ops/hash_gather.py:45",
+                    "launches": hash_launches["hash_gather_rows"],
+                    "max_abs_err": hash_errs["gather"], **gather_t})
+    kernels.append({"name": "hash_scatter_add_rows", "route": "cuda",
+                    "source": "nerf_tpu_torch/csrc/hash_gather.cu",
+                    "replaces": "nerf_tpu/models/hashgrid.py:214 (XLA scatter-add of the "
+                                "slotpack VJP; B4's backward)",
+                    "launches": hash_launches["hash_scatter_add_rows"],
+                    "max_abs_err": max(hash_errs["scatter"], scatter_err), **scatter_t})
+
+    log("phase 15: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(smi, flush=True)

@@ -118,6 +118,31 @@ class NeRFMLP(nn.Module):
         return model
 
 
+def apply_nerf_mlp(params: Mapping[str, Any], x: torch.Tensor, input_ch: int,
+                   skips: Sequence[int] = (4,), compute_dtype: torch.dtype = torch.float32
+                   ) -> torch.Tensor:
+    """The counterpart of ``nerf_tpu``'s ``apply_nerf_mlp`` on a JAX-layout
+    tree (weights [in, out]) of any depth, width and skips, with the view
+    head: x [..., input_ch + input_ch_views] -> [..., 4] float32. Each product
+    rounds its operands to ``compute_dtype`` and sums in float32 (``dense``).
+    The hash-grid model runs its MLP here: the JAX package leaves it to XLA,
+    not to a Pallas kernel."""
+    def lin(p, h):
+        return dense(h, p["w"].t(), p["b"], compute_dtype)
+
+    input_pts, input_views = x[..., :input_ch], x[..., input_ch:]
+    h = input_pts
+    for i, layer in enumerate(params["pts_linears"]):
+        h = torch.relu(lin(layer, h))
+        if i in skips:
+            h = torch.cat([input_pts, h], dim=-1)
+    alpha = lin(params["alpha_linear"], h)
+    h = torch.cat([lin(params["feature_linear"], h), input_views], dim=-1)
+    for layer in params["views_linears"]:
+        h = torch.relu(lin(layer, h))
+    return torch.cat([lin(params["rgb_linear"], h), alpha], dim=-1)
+
+
 def init_nerf_mlp(generator: Optional[torch.Generator] = None, D: int = 8, W: int = 256,
                   input_ch: int = 63, input_ch_views: int = 27, skips: Sequence[int] = (4,),
                   device: Optional[torch.device] = None) -> Tree:

@@ -86,6 +86,7 @@ def decay(grid: OccupancyGrid, keep_prob: float = 0.99,
     return grid._replace(occupied=grid.occupied & (u < keep_prob))
 
 
+@torch.no_grad()
 def populate_from_density(grid: OccupancyGrid,
                           density_fn: Callable[[torch.Tensor], torch.Tensor],
                           threshold: float = 0.01, chunk: int = 1 << 21) -> OccupancyGrid:

@@ -115,8 +115,9 @@ class RenderService:
         self.device = resolve_device(device)
         self.size = size
         self.opts = RenderOptions.from_cfg(cfg)
-        self.params = kernel_params(load_params(cfg.trained_model_dir), self.opts,
-                                    self.device)
+        self.params = kernel_params(load_params(cfg.trained_model_dir,
+                                                **self.opts.model_shape()),
+                                    self.opts, self.device)
         self.grid: Optional[occ.OccupancyGrid] = None
         if self.opts.enable_ess:
             # init_grid's random voxels are all overwritten by the rebuild

@@ -1,15 +1,20 @@
-"""Where a lego train step's time goes on the GPU, by torch.profiler.
+"""Where a train step's time goes on the GPU, by torch.profiler.
 
-    python -m nerf_tpu_torch.tools.train_profile [--steps 20] [--warmup 5] [key value ...]
+    python -m nerf_tpu_torch.tools.train_profile [--cfg_file FILE] [--steps 20] [--warmup 5]
+        [key value ...]
 
-Resumes the committed lego state (checkpoints/nerf/lego/nerf, epoch 49),
-builds the serving path's RenderService for its ESS grid and camera, renders
-8 orbit views of the model at 200x200 as the targets (as chip_smoke.py's
-phases 8-10 do), then times --steps warm train steps (configs/nerf/lego.yaml: 1024
-rays, 64 + 128 samples, bf16) twice: once by the host clock with a
-synchronize per step, once under torch.profiler. Prints ms per step, the
-device's busy share (the kernels' summed time over the profiled wall time)
-and the kernels and host operators that take the most time per step.
+With the default configs/nerf/lego.yaml it resumes the committed lego state
+(checkpoints/nerf/lego/nerf, epoch 49), builds the serving path's
+RenderService for its ESS grid and camera and renders 8 orbit views of the
+model at 200x200 as the targets (as chip_smoke.py's phases 8-10 do). A
+config without a checkpoint in its trained_model_dir (e.g.
+configs/nerf/lego_hashgrid_cellpack.yaml) starts from the seed's initial
+parameters, rebuilds the ESS grid from their density and takes random
+colours at the same 8 poses as the targets. Then it times --steps warm
+train steps (1024 rays, 64 + 128 samples) twice: once by the host clock
+with a synchronize per step, once under torch.profiler. Prints ms per step,
+the device's busy share (the kernels' summed time over the profiled wall
+time) and the kernels and host operators that take the most time per step.
 """
 from __future__ import annotations
 
@@ -22,12 +27,14 @@ import numpy as np
 import torch
 
 from ..config import make_cfg
+from ..render import occupancy as occ
 from ..render.renderer import RenderOptions
 from ..serve import RenderService, look_at_pose
 from ..train import loop
 from ..train.checkpoint import load_checkpoint
 from ..train.optim import make_optimizer
 from ..train.state import init_state, train_step
+from ..tree import tree_leaves
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -39,6 +46,7 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--cfg_file", default=os.path.join(ROOT, "configs/nerf/lego.yaml"))
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--warmup", type=int, default=5)
     parser.add_argument("--top", type=int, default=15)
@@ -47,19 +55,31 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("train_profile measures the GPU; no CUDA device found")
     dev = torch.device("cuda")
-    model_dir = os.path.join(ROOT, "checkpoints/nerf/lego/nerf")
-    cfg = make_cfg(os.path.join(ROOT, "configs/nerf/lego.yaml"),
-                   ["trained_model_dir", model_dir, *args.opts])
+    lego = os.path.join(ROOT, "checkpoints/nerf/lego/nerf")
+    is_lego = os.path.basename(args.cfg_file) == "lego.yaml"
+    cfg = make_cfg(args.cfg_file, (["trained_model_dir", lego] if is_lego else []) + args.opts)
     opts = RenderOptions.from_cfg(cfg)
     tx = make_optimizer(cfg)
-    template = init_state(loop.init_nerf_params(torch.Generator().manual_seed(0), opts, dev), tx)
-    state = load_checkpoint(model_dir, template)[0]
-    service = RenderService(cfg, size=200, device=dev)  # the ESS grid and the camera
-    grid, K = service.grid, service.K
+    state = init_state(loop.init_nerf_params(torch.Generator().manual_seed(0), opts, dev), tx)
     thetas = [2 * math.pi * i / 8 for i in range(8)]
     poses = torch.as_tensor(np.stack([look_at_pose(t, 0.3, 4.0) for t in thetas]), device=dev)
-    imgs = torch.stack([(service.render(t, 0.3, 4.0).clamp(0, 1) * 255).round().to(torch.uint8)
-                        for t in thetas])
+    resumed = load_checkpoint(cfg.trained_model_dir, state)
+    if resumed is not None:
+        state = resumed[0]
+        service = RenderService(cfg, size=200, device=dev)  # the ESS grid and the camera
+        grid, K = service.grid, service.K
+        imgs = torch.stack([(service.render(t, 0.3, 4.0).clamp(0, 1) * 255).round()
+                            .to(torch.uint8) for t in thetas])
+    else:
+        gen = torch.Generator(device=dev).manual_seed(1)
+        grid = occ.populate_from_density(
+            occ.init_grid(int(cfg.get("occupancy_grid_resolution", 128)), generator=gen,
+                          device=dev), loop.make_density_fn(state.params["coarse"], opts))
+        K = torch.tensor([[278.0, 0, 100], [0, 278.0, 100], [0, 0, 1]], device=dev)
+        imgs = torch.randint(0, 256, (8, 200, 200, 3), dtype=torch.uint8, device=dev,
+                             generator=gen)
+    print(f"{args.cfg_file}: {'resumed ' + cfg.trained_model_dir if resumed else 'initial'} "
+          f"parameters, {len(tree_leaves(state.params))} leaves")
     n_rays = int(cfg.task_arg.N_rays)
     gen = torch.Generator(device=dev).manual_seed(3)
 

@@ -11,6 +11,13 @@ Adam (or RAdam) the optimizer state follows: its count (48), mu (49-96), nu
 (97-144) and the schedule's count (145); then the step (146). With SGD only
 the schedule's count sits between the params and the step.
 
+A hash-grid model adds its table, ``xyz_encoder.table``, after
+views_linears: leaf 16 of the coarse model and 33 of the fine one, 105
+leaves in all with Adam. A bfloat16 leaf (the table, and Adam's moments of
+it) is stored as numpy writes JAX's bfloat16, as raw two-byte voids
+(``|V2``); the port reads those bits through uint16 and writes them back the
+same way.
+
 Reading and writing need no JAX: the leaf order is rebuilt here from the
 model's shape, and the files load in ``nerf_tpu.train.checkpoint`` as its
 own do.
@@ -33,8 +40,9 @@ Tree = Dict[str, Any]
 
 
 def _mlp_leaf_shapes(D: int = 8, W: int = 256, input_ch: int = 63,
-                     input_ch_views: int = 27, skips=(4,)) -> List[Tuple[tuple, tuple]]:
-    """[(path, shape)] of one MLP in JAX flatten order."""
+                     input_ch_views: int = 27, skips=(4,),
+                     hash_table: Optional[tuple] = None) -> List[Tuple[tuple, tuple]]:
+    """[(path, shape)] of one MLP (and its hash table) in JAX flatten order."""
     out = [(("alpha_linear", "b"), (1,)), (("alpha_linear", "w"), (W, 1)),
            (("feature_linear", "b"), (W,)), (("feature_linear", "w"), (W, W))]
     in_dim = input_ch
@@ -44,7 +52,23 @@ def _mlp_leaf_shapes(D: int = 8, W: int = 256, input_ch: int = 63,
     out += [(("rgb_linear", "b"), (3,)), (("rgb_linear", "w"), (W // 2, 3)),
             (("views_linears", 0, "b"), (W // 2,)),
             (("views_linears", 0, "w"), (W + input_ch_views, W // 2))]
+    if hash_table is not None:
+        out.append((("xyz_encoder", "table"), tuple(hash_table)))
     return out
+
+
+def _bf16_bits(arr: np.ndarray) -> bool:
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
+def bf16_to_float32(arr: np.ndarray) -> np.ndarray:
+    """Raw bfloat16 bits (``|V2`` or uint16) -> float32, exactly."""
+    return (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def bf16_tensor(arr: np.ndarray) -> torch.Tensor:
+    """Raw bfloat16 bits -> a torch.bfloat16 tensor holding them."""
+    return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
 
 
 def _set(tree: Tree, path: tuple, value):
@@ -61,7 +85,9 @@ def _set(tree: Tree, path: tuple, value):
 
 def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
     """Read the {"coarse", "fine"} params of a ``nerf_tpu`` NeRF checkpoint as
-    a JAX-layout pytree of float32 numpy arrays (weights [in, out]).
+    a JAX-layout pytree of float32 numpy arrays (weights [in, out]). A
+    hash-grid model (``hash_table=`` its table's shape) gets its table too,
+    its bfloat16 values widened to float32 exactly.
 
     Raises ``FileNotFoundError`` when the checkpoint is missing and
     ``ValueError`` when a leaf does not have the expected shape.
@@ -79,7 +105,8 @@ def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
                 if arr.shape != shape:
                     raise ValueError(f"{path}: leaf_{i} ({model}.{sub}) has shape "
                                      f"{arr.shape}, expected {shape}")
-                _set(params, (model,) + sub, np.asarray(arr, np.float32))
+                _set(params, (model,) + sub, bf16_to_float32(arr) if _bf16_bits(arr)
+                     else np.asarray(arr, np.float32))
     return params
 
 
@@ -95,6 +122,8 @@ def _state_leaves(state) -> list:
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if leaf.dtype == torch.bfloat16:  # JAX's bfloat16 as np.savez stores it
+            return leaf.detach().cpu().view(torch.int16).numpy().view(np.dtype("V2"))
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf, np.int32)  # the counters: int32 scalars, as JAX keeps them
 
@@ -138,7 +167,12 @@ def load_checkpoint(model_dir: str, template, tag: str = "latest"):
             if arr.shape != tuple(like.shape):
                 raise ValueError(f"{path}: leaf_{i} has shape {arr.shape}, expected "
                                  f"{tuple(like.shape)}")
-            leaves.append(torch.from_numpy(np.array(arr, np.float32)).to(like.device))
+            if like.dtype == torch.bfloat16:
+                if not _bf16_bits(arr):
+                    raise ValueError(f"{path}: leaf_{i} is {arr.dtype}, expected bfloat16 bits")
+                leaves.append(bf16_tensor(arr).to(like.device))
+            else:
+                leaves.append(torch.from_numpy(np.array(arr, np.float32)).to(like.device))
         else:
             if arr.shape != ():
                 raise ValueError(f"{path}: leaf_{i} has shape {arr.shape}, expected a counter")

@@ -20,6 +20,7 @@ import torch
 from ..data import make_dataset
 from ..device import resolve_device
 from ..eval.metrics import psnr as psnr_fn
+from ..models.hashgrid import init_hashgrid
 from ..models.nerf_mlp import init_nerf_mlp
 from ..ops.fused_mlp import supports
 from ..render import occupancy as occ
@@ -35,17 +36,34 @@ from .state import init_state, train_steps
 def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
                      device: Union[str, torch.device] = "cpu"):
     """{"coarse", "fine"} MLP trees of ``init_nerf_mlp``, both drawn from
-    ``generator``, on ``device``."""
+    ``generator``, on ``device``. A hash-grid model then draws a table for
+    each (``init_hashgrid``, U(-1e-4, 1e-4) in ``opts.hash_dtype``) and
+    starts alpha_linear's bias at 0.1, as the JAX package does: the features
+    start near 0, so sigma_raw is about that bias everywhere, and a negative
+    one would start every density dead."""
     kw = dict(D=opts.mlp_depth, W=opts.mlp_width, input_ch=opts.input_ch,
               input_ch_views=opts.input_ch_views, skips=opts.skips, device=device)
-    return {"coarse": init_nerf_mlp(generator, **kw), "fine": init_nerf_mlp(generator, **kw)}
+    params = {"coarse": init_nerf_mlp(generator, **kw), "fine": init_nerf_mlp(generator, **kw)}
+    if opts.hashgrid:
+        for model in params.values():
+            table = init_hashgrid(generator, n_levels=opts.hash_levels,
+                                  n_features=opts.hash_features,
+                                  log2_table_size=opts.hash_log2_size,
+                                  dtype=renderer._DTYPES[opts.hash_dtype],
+                                  layout=opts.hash_layout, device=device)["table"]
+            model["xyz_encoder"] = {"table": table.requires_grad_(True)}
+            with torch.no_grad():
+                model["alpha_linear"]["b"].fill_(0.1)
+    return params
 
 
 def make_density_fn(params, opts: RenderOptions):
     """[M, 3] -> activated sigma of the MLP tree ``params`` (the coarse model),
-    through the fused kernel, for grid rebuilds."""
+    through the fused kernel (or, for a hash-grid model, the hash query), for
+    grid rebuilds."""
     dev = params["pts_linears"][0]["w"].device
-    return renderer.make_density_fn(renderer.kernel_params({"m": params}, opts, dev)["m"], opts)
+    kp = renderer.kernel_params({"m": params}, opts, dev)["m"]
+    return renderer.make_density_fn(kp, opts)
 
 
 def check_finite_stats(host_stats: dict, epoch: int = 0, iteration: int = 0) -> None:
@@ -63,9 +81,9 @@ def train(cfg, max_epochs: Optional[int] = None,
     """Train ``cfg``'s NeRF; returns (state, grid). ``device`` defaults to CUDA."""
     dev = resolve_device(device)
     opts = RenderOptions.from_cfg(cfg)
-    if not supports(opts):
+    if not (opts.hashgrid or supports(opts)):
         raise NotImplementedError("only the 8x256 skip-4 view-direction NeRF "
-                                  "with 10/4 frequency bands is ported")
+                                  "with 10/4 frequency bands and the hash-grid NeRF are ported")
     check_weight_dtype(opts, dev)
     seed = int(cfg.get("seed", 0))
     gen_init = torch.Generator().manual_seed(seed)
@@ -101,12 +119,10 @@ def train(cfg, max_epochs: Optional[int] = None,
         p = str(cfg.pretrain)
         pdir, tag = ((os.path.dirname(p) or ".", os.path.basename(p)[:-4])
                      if p.endswith(".npz") else (p, "latest"))
-        loaded = load_params(pdir, tag=tag, D=opts.mlp_depth, W=opts.mlp_width,
-                             input_ch=opts.input_ch, input_ch_views=opts.input_ch_views,
-                             skips=opts.skips)
+        loaded = load_params(pdir, tag=tag, **opts.model_shape())
         with torch.no_grad():
             for dst, src in zip(tree_leaves(state.params), tree_leaves(loaded)):
-                dst.copy_(torch.from_numpy(src))
+                dst.copy_(torch.from_numpy(src))  # a bf16 table holds its values exactly
         print(f"initialized weights from pretrain: {p}", flush=True)
 
     ep_iter = int(cfg.get("ep_iter", 500))

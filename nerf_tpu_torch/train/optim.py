@@ -7,9 +7,16 @@ The update is optax's chain, written out: value-clip at 40, then Adam
 order in float32 (moments ``(1 - b) * g + b * m``; bias corrections
 ``1 - b ** count``), so one step agrees with optax to float32 rounding.
 
+A bfloat16 leaf (the hash grid's table) is updated as optax updates it:
+its moments are bfloat16 like the leaf, every constant (1 - b, b, the bias
+corrections, eps, -lr) is first rounded to bfloat16, as JAX rounds a
+Python scalar to the array's dtype, and every operation rounds its result
+to bfloat16; optax's ``scale_by_schedule`` casts the learning rate to the
+update's dtype, and ``apply_updates`` adds in bfloat16.
+
 The state is kept as the JAX package stores it, so checkpoints carry over:
-Adam's count, ``mu``, ``nu`` (one tensor per parameter leaf) and the
-schedule's count.
+Adam's count, ``mu``, ``nu`` (one tensor per parameter leaf, in the leaf's
+dtype) and the schedule's count.
 """
 from __future__ import annotations
 
@@ -84,6 +91,11 @@ def _ipow(base: float, n: int) -> np.float32:
     return r
 
 
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """v rounded to ``dtype`` (a Python float that ``dtype`` holds exactly)."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
 @dataclasses.dataclass
 class OptState:
     count: int  # the moments' update count (Adam, RAdam)
@@ -134,23 +146,26 @@ class Optimizer:
             state.count = count
         neg_lr = -self.schedule(state.sched_count)
         for i, (p, g) in enumerate(zip(params, grads)):
+            def c(v):  # a constant as an operand of p's dtype
+                return v if p.dtype == torch.float32 else _rounded(v, p.dtype)
+
             g = g.clamp(-CLIP, CLIP)
             if self.kind == "sgd":
                 u = g
             else:
-                mu = (1.0 - self.b1) * g + self.b1 * state.mu[i]
-                nu = (1.0 - self.b2) * (g * g) + self.b2 * state.nu[i]
+                mu = c(1.0 - self.b1) * g + c(self.b1) * state.mu[i]
+                nu = c(1.0 - self.b2) * (g * g) + c(self.b2) * state.nu[i]
                 state.mu[i], state.nu[i] = mu, nu
-                mu_hat, nu_hat = mu / bc1, nu / bc2
+                mu_hat, nu_hat = mu / c(bc1), nu / c(bc2)
                 if self.kind == "adam" or ro >= 5.0:
-                    u = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+                    u = mu_hat / (torch.sqrt(nu_hat) + c(self.eps))
                     if self.kind == "radam":
-                        u = float(r) * u
+                        u = c(float(r)) * u
                 else:
                     u = mu_hat
             if self.weight_decay > 0:
-                u = u + self.weight_decay * p
-            p.add_(u * float(neg_lr))
+                u = u + c(self.weight_decay) * p
+            p.add_(u * c(float(neg_lr)))
         state.sched_count += 1
 
 

@@ -17,6 +17,16 @@ Tolerances (as chip_smoke.py states them):
   on the kernel's own recomputed forward (each layer's gradient is rounded
   to bf16, 2^-9 relative, before its products; random points and upstream
   gradients spread the gradient over every point);
+- hash-table row gather (B4): exact; its scatter-add: per element within
+  ``hash_gather.scatter_add_tolerance`` of the plain version (two float32
+  sums of the same terms in other orders, each rounded once to bf16; the
+  kernel's atomics make its order change from run to run);
+- the hash-grid model (random tables): encodings and a render through the
+  gather kernel against its plain gather exact (the same rows, the same
+  float32 arithmetic after them); one hash-grid train step through the kernels against
+  the plain versions: loss within 1e-4 relative, every gradient within 1e-2
+  in relative norm (the tables' gradients differ by the scatter-add's
+  bf16 rounding, 2^-8, and the MLP's by B3's float32 sums);
 - one train step through the kernels against the plain versions: loss
   within 1e-4 relative; each parameter's gradient within max(1e-2, 2x the
   distance between the plain path and the plain path with float32 weights)
@@ -35,7 +45,7 @@ import pytest
 import torch
 
 from nerf_tpu_torch.config import make_cfg
-from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd
+from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd, hash_gather
 from nerf_tpu_torch.ops import integrate as tint
 from nerf_tpu_torch.render.renderer import RenderOptions, kernel_params, render_rays
 from nerf_tpu_torch.serve import RenderService, look_at_pose
@@ -236,3 +246,116 @@ def test_train_step_kernels_match_plain(cuda, tmp_path):
     assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
     for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
         assert _rel_norm(a, b) <= max(1e-2, 2.0 * _rel_norm(b, c)), i
+
+
+def _hash_rows(cuda, n_rows, width, dtype, n, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    table = (torch.rand((n_rows, width), generator=gen, device=cuda) * 2 - 1).to(dtype)
+    # a few hot rows take half the indices, as the coarse levels do
+    hot = torch.randint(0, min(n_rows, 64), (n // 2,), generator=gen, device=cuda)
+    cold = torch.randint(0, n_rows, (n - n // 2,), generator=gen, device=cuda)
+    idx = torch.cat([hot, cold])[torch.randperm(n, generator=gen, device=cuda)]
+    return table, idx.to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,width,dtype", [
+    (16 * 65536, 16, torch.bfloat16),  # cellpack rows, 32 B
+    (16 * 2**19, 2, torch.bfloat16),  # corner rows, 4 B
+    (4096, 2, torch.float32),  # 8 B
+    (1000, 3, torch.float32),  # 12 B: 4-byte words
+    (77, 1, torch.bfloat16)])  # 2 B
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_gather_kernel_matches_plain(cuda, n_rows, width, dtype, n):
+    table, idx = _hash_rows(cuda, n_rows, width, dtype, n, n)
+    before = hash_gather.gather_rows.launches
+    got = hash_gather.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert hash_gather.gather_rows.launches == before + 1
+    assert torch.equal(got, hash_gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width,dtype", [(16, torch.bfloat16), (2, torch.float32),
+                                         (3, torch.bfloat16)])
+def test_scatter_add_kernel_matches_plain(cuda, width, dtype):
+    n_rows, n = 4096, 1 << 20
+    _, idx = _hash_rows(cuda, n_rows, width, dtype, n, 7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    cot = torch.randn((n, width), generator=gen, device=cuda).to(dtype)
+    before = hash_gather.scatter_add_rows.launches
+    got = hash_gather.scatter_add_rows(idx, cot, n_rows)
+    want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
+    torch.cuda.synchronize()
+    assert hash_gather.scatter_add_rows.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n_rows, width)
+    tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_gather_kernels_reject_what_they_cannot_take(cuda):
+    table, idx = _hash_rows(cuda, 100, 16, torch.bfloat16, 10, 0)
+    with pytest.raises(ValueError, match="^idx:"):
+        hash_gather.gather_rows(table, idx.long())
+    with pytest.raises(ValueError, match="dtype"):
+        hash_gather.gather_rows(table.half(), idx)
+    with pytest.raises(ValueError, match="^cot:"):
+        hash_gather.scatter_add_rows(idx, torch.zeros((10, 16), device=cuda)[:, ::2], 100)
+
+
+def _hash_setup(cuda, n_rays=256):
+    from nerf_tpu_torch.train import loop
+
+    cfg = make_cfg(os.path.join(ROOT, "configs/nerf/lego_hashgrid_cellpack.yaml"),
+                   ["task_arg.perturb", "0"])
+    opts = RenderOptions.from_cfg(cfg)
+    params = loop.init_nerf_params(torch.Generator().manual_seed(0), opts, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.no_grad():  # trained-looking tables: features of order 1
+        for m in params.values():
+            m["xyz_encoder"]["table"].uniform_(-1, 1, generator=gen)
+    pose = torch.as_tensor(look_at_pose(0.5, 0.3, 4.0), device=cuda)
+    K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], device=cuda)
+    ro, rd = image_rays(32, 32, K, pose)
+    return cfg, opts, params, ro[:n_rays].contiguous(), rd[:n_rays].contiguous()
+
+
+@pytest.mark.cuda
+def test_hash_render_through_the_gather_kernel_matches_plain(cuda):
+    from nerf_tpu_torch.models.hashgrid import hashgrid_encode
+
+    _, opts, params, ro, rd = _hash_setup(cuda)
+    pts = (torch.rand((5000, 3), device=cuda) * 4 - 2)
+    for layout_params in (params["coarse"]["xyz_encoder"],):
+        a = hashgrid_encode(layout_params, pts, layout="cellpack")
+        b = hashgrid_encode(layout_params, pts, layout="cellpack", plain=True)
+        assert torch.equal(a, b)
+    before = hash_gather.gather_rows.launches
+    kp = kernel_params(params, opts, cuda)
+    got = render_rays(kp, ro, rd, opts)
+    assert hash_gather.gather_rows.launches == before + 2
+    want = render_rays(kp, ro, rd, dataclasses.replace(opts, use_fused_mlp=False))
+    for k in ("rgb_map", "acc_map", "rgb_map_0", "depth_map"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_hash_train_step_kernels_match_plain(cuda):
+    from nerf_tpu_torch.train.state import loss_and_grads
+
+    _, opts, params, ro, rd = _hash_setup(cuda)
+    tgt = torch.rand((ro.shape[0], 3), generator=torch.Generator(device=cuda).manual_seed(2),
+                     device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rng = gen.get_state()
+    counters = (hash_gather.gather_rows, hash_gather.scatter_add_rows, tint.integrate)
+    before = [c.launches for c in counters]
+    lk, _, gk = loss_and_grads(params, ro, rd, tgt, opts, None, gen)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    gen.set_state(rng)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    lp, _, gp = loss_and_grads(params, ro, rd, tgt, plain, None, gen)
+    assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        assert a.dtype == b.dtype and _rel_norm(a, b) <= 1e-2, i

@@ -9,7 +9,15 @@ tile.
 Tolerances:
 - float32 weights: per gradient leaf 2e-4 * max|want| + 1e-6, and 1e-3 for
   dpts/ddirs, as tests/test_fused_bwd.py (sums of 640 products in another
-  order).
+  order). A ReLU unit whose pre-activation lies within float32 rounding of
+  zero can be decided either way by two correct float32 forwards (XLA's
+  CPU dot and sin/cos against torch's), and one flipped unit moves a whole
+  leaf by far more than 2e-4 of its largest value. So the float32 case
+  zeroes the cotangent of every point that has such a unit, on both sides
+  alike, decided from float64 margins (``_knife_edge_points``) and never
+  from either float32 forward: a point with zero cotangent adds nothing to
+  any weight gradient and gets zero dpts/ddirs, so its masks no longer
+  matter. Every other point is compared at the tolerance above.
 - bfloat16 weights: the port rounds each layer's gradient G to bf16 before
   its two products (the tensor cores take bf16), where the Pallas kernel
   keeps G and the activations in float32. One rounding of G is 2^-9
@@ -32,6 +40,16 @@ from nerf_tpu.render.renderer import RenderOptions as JaxRenderOptions
 from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd
 from nerf_tpu_torch.tree import tree_flatten, tree_map
 
+# Rounding margin of a ReLU pre-activation z = sum_i w_i h_i + b in float32:
+# KNIFE_EDGE_C * 2^-24 * (sum_i |w_i h_i| + |b|). A blocked float32 dot
+# product of K <= 319 terms (layer 5) errs by about sqrt(K) * 2^-24 of that
+# sum (<= 18 units; K * 2^-24 at worst), and the inputs carry in their own
+# rounding from up to eight layers below and from sin/cos of the exact
+# float32 phases (a few units each, of the same magnitudes). 64 is well
+# above the typical total and zeroes 28 of the 640 points of _inputs(640, 7)
+# (the worst case, C = K, would zero 98).
+KNIFE_EDGE_C = 64.0
+MAX_ZEROED_SHARE = 0.10
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 TOL = {"float32": (2e-4, 1e-3), "bfloat16": (3e-2, 3e-2)}
 N = 640
@@ -53,6 +71,44 @@ def _inputs(n, seed):
     return pts, d, g
 
 
+def _relu_margins(kp, pts, dirs):
+    """[(layer, z, s)] for every ReLU layer of the plain forward (pts
+    layers 0-7 and the view layer "v"), in float64 from the float32 weights
+    ``kp`` and the float32 phases: z the pre-activations [P, units], s the
+    sums of |w_i h_i| + |b|."""
+    f64 = torch.float64
+    w = {k: v.to(f64) for k, v in kp.items()}
+    x, dd = (torch.from_numpy(a).to(f64) for a in (pts, dirs))
+    a = fused_mlp._phases(torch.from_numpy(pts), kp["sx"]).to(f64)
+    b = fused_mlp._phases(torch.from_numpy(dirs), kp["sd"]).to(f64)
+
+    def lin(terms, bias):
+        z = sum(h @ w[k] for h, k in terms) + w[bias]
+        s = sum(h.abs() @ w[k].abs() for h, k in terms) + w[bias].abs()
+        return z, s
+
+    enc = [(x, "w0x"), (a.sin(), "w0s"), (a.cos(), "w0c")]
+    out = [(0, *lin(enc, "b0"))]
+    for i in (1, 2, 3, 4):
+        out.append((i, *lin([(out[-1][1].clamp_min(0), f"w{i}")], f"b{i}")))
+    enc5 = [(h, k.replace("0", "5")) for h, k in enc]
+    out.append((5, *lin(enc5 + [(out[-1][1].clamp_min(0), "w5h")], "b5")))
+    for i in (6, 7):
+        out.append((i, *lin([(out[-1][1].clamp_min(0), f"w{i}")], f"b{i}")))
+    feat = out[-1][1].clamp_min(0) @ w["wf"] + w["bf"]
+    view = [(feat, "wvf"), (dd, "wvx"), (b.sin(), "wvs"), (b.cos(), "wvc")]
+    out.append(("v", *lin(view, "bv")))
+    return out
+
+
+def _knife_edge_points(kp, pts, dirs, c=KNIFE_EDGE_C):
+    """bool [P]: points with a ReLU unit within c * 2^-24 * s of zero."""
+    hit = torch.zeros(pts.shape[0], dtype=torch.bool)
+    for _, z, s in _relu_margins(kp, pts, dirs):
+        hit |= (z.abs() < c * 2.0 ** -24 * s).any(dim=1)
+    return hit.numpy()
+
+
 def _assert_grads(got, want, tol, what):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, what
@@ -66,6 +122,8 @@ def pallas_case(request, lego):
     dtype = request.param
     tdt, jdt = DTYPES[dtype]
     pts, d, g = _inputs(N, 7)
+    if dtype == "float32":
+        g[_knife_edge_points(fused_mlp.repack_params(lego, weight_dtype=torch.float32), pts, d)] = 0
     jkp = jax_fused.repack_params(jax.tree_util.tree_map(jnp.asarray, lego), weight_dtype=jdt)
     want = jax_bwd.fused_nerf_bwd(jkp, jnp.asarray(pts), jnp.asarray(d), jnp.asarray(g),
                                   interpret=True)
@@ -87,6 +145,31 @@ def test_plain_input_grads_match_pallas_interpret(pallas_case):
         w = np.asarray(want[i])
         atol = tol if dtype == "float32" else tol * np.abs(w).max()
         np.testing.assert_allclose(got[i].numpy(), w, rtol=0, atol=atol, err_msg=f"{dtype} {name}")
+
+
+def test_float32_knife_edge_units(lego):
+    """The float32 ReLU units of _inputs(640, 7) within rounding of zero.
+    Prints every unit within the typical bound sqrt(K) * 2^-24 * s (point,
+    layer, unit, pre-activation, bound) and the counts of points at other
+    margins; every such unit's point is among those the comparison zeroes,
+    and the zeroed points stay under 10% of the 640."""
+    kp = fused_mlp.repack_params(lego, weight_dtype=torch.float32)
+    pts, d, _ = _inputs(N, 7)
+    fan_in = {0: 63, 5: 319, "v": 283}
+    typical = set()
+    for layer, z, s in _relu_margins(kp, pts, d):
+        bound = fan_in.get(layer, 256) ** 0.5 * 2.0 ** -24 * s
+        for p, unit in torch.nonzero(z.abs() < bound).tolist():
+            typical.add(p)
+            print(f"point {p} layer {layer} unit {unit}: pre-activation "
+                  f"{float(z[p, unit]):+.3e}, bound {float(bound[p, unit]):.3e}")
+    counts = {c: int(_knife_edge_points(kp, pts, d, c).sum()) for c in (16, 32, 64)}
+    zeroed = _knife_edge_points(kp, pts, d)
+    print(f"points within c * 2^-24 * s: {counts}; zeroed (c = {KNIFE_EDGE_C:g}): "
+          f"{int(zeroed.sum())} of {N}")
+    assert typical and typical <= set(np.nonzero(zeroed)[0].tolist())
+    assert counts[16] <= counts[32] <= counts[64] == int(zeroed.sum())
+    assert zeroed.sum() < MAX_ZEROED_SHARE * N
 
 
 def test_grad_keys_are_the_pallas_kernels():

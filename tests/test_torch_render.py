@@ -214,7 +214,7 @@ def test_render_options_from_cfg_match_jax():
 
 
 @pytest.mark.parametrize("override", [["network_module", "kilonerf"],
-                                      ["network.xyz_encoder.type", "hashgrid"],
+                                      ["network.xyz_encoder.type", "spherical_harmonics"],
                                       ["ess_compaction", "0.3"]])
 def test_render_options_refuse_what_is_not_ported(override):
     cfg = make_cfg(os.path.join(ROOT, "configs/nerf/lego.yaml"), override)
