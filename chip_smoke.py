@@ -5,10 +5,17 @@
 
 Phases, each printed with its elapsed seconds:
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel under nerf_tpu_torch/csrc with plain nvcc, all at once;
+  2. build every kernel under nerf_tpu_torch/csrc with plain nvcc, all at once,
+     and print ptxas's registers, stack and spills for each kernel entry (the
+     wgmma forward must not spill);
   3. each kernel against its plain PyTorch version on random inputs (the
      fused MLP on 65,536 points; integrate with and without ERT, relu and
-     softplus, S = 64 and 192);
+     softplus, S = 64 and 192); the fused MLP's wgmma path: one layer's
+     product against torch.matmul, 84,525 random points (5 rounds of the
+     persistent grid and a ragged tile) against the plain version and the
+     wmma forward, and every ragged prefix (1, 63, 64, 127, 128, 129,
+     65,553 points) launched alone, exactly equal to the same rows of that
+     launch;
   4. serve: a RenderService for configs/nerf/lego.yaml with the committed
      checkpoint (ESS grid rebuilt through the fused kernel), an HTTP server
      on 127.0.0.1, one warm-up GET /frame at 200x200 (the startup figure),
@@ -19,6 +26,9 @@ Phases, each printed with its elapsed seconds:
      shapes and inputs (the first and the last render tile of the warm-up
      pose, coarse and fine, and one ESS lattice slab), and each kernel's
      time on the first tile's fine pass, with its bound from those inputs;
+     the fused MLP also on the first tile's coarse pass, beside the
+     wmma forward (timed in turns with it) and a chain of bf16 torch.matmul
+     calls with float32 epilogues (a yardstick, printed on its own line);
   6. the warm-up pose rendered through the plain versions; PSNR >= 40 dB;
   7. train: the committed epoch-49 lego state (params, Adam's moments and
      counts) copied to a temp directory and resumed through the trainer's
@@ -158,7 +168,16 @@ PEAK_BYTES = 3.35e12
 #   bf16's own distance from float32 bounds such differences, as for the
 #   lego step above. The tables' gradients also differ by their bf16
 #   rounding after float32 sums in other orders (2^-8 relative).
+# - one layer's product through the fused kernel's wgmma path (ring,
+#   descriptors, accumulator layout) against torch.matmul of the same bf16
+#   operands in float32: per element within 2^-14 sum |a w|: float32 sums of
+#   256 terms in any two orders lie within 256 x 2^-24 sum |a w| (4x left).
+# - the fused kernel on a prefix of points launched alone against the same
+#   rows of a larger launch: exact (a row's arithmetic does not depend on
+#   its tile, its block or the rows around it).
 FUSED_P99_REL, FUSED_P999_REL, FUSED_MAX_OVER_PLAIN64 = 1e-3, 1e-2, 2.0
+LAYER_REL = 2.0 ** -14
+RAGGED_SIZES, PERSISTENT_SIZE = (1, 63, 64, 127, 128, 129, 65_553), 84_525
 INTEGRATE_ATOL = 2e-5
 PSNR_MIN_DB = 40.0
 BWD_FRO_REL, BWD_MAX_OVER_PLAIN64, OVER_BF16_SPREAD = 1e-2, 2.0, 2.0
@@ -217,6 +236,20 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_entries(text):
+    """[(kernel, its ptxas -v figures)] from nvcc's log: the stack and spill
+    line and the registers line of every entry function."""
+    entries = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            names = re.findall(r"\d([a-z][a-z_]*_kernel)", m.group(1))
+            entries.append([max(names, key=len) if names else m.group(1), []])
+        elif entries and ("spill" in line or "registers" in line):
+            entries[-1][1].append(line.replace("ptxas info    :", "").strip())
+    return [(name, " | ".join(stats)) for name, stats in entries]
 
 
 def fused_errors(label, kp, pts, dirs):
@@ -293,6 +326,78 @@ def random_phase(kp, dev):
                 integrate_err = max(integrate_err,
                                     integrate_errors("random", raw, z, d, ert, act))
     return fused_errs, integrate_err
+
+
+def wgmma_phase(kp, dev):
+    """The fused kernel's wgmma path: one layer's product against
+    torch.matmul; PERSISTENT_SIZE random points against the plain version
+    (returned for the gates) and against the wmma forward; each ragged
+    prefix launched alone against the same rows of that launch."""
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn((128, 256), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((256, 256), generator=gen, device=dev).to(torch.bfloat16)
+    got = fused_mlp.wgmma_layer_product(a, w)
+    want = a.float() @ w.float()
+    ratio = float(((got - want).abs() / (a.float().abs() @ w.float().abs())).max())
+    log(f"wgmma layer product 128x256x256 against torch.matmul in float32: max |err| / "
+        f"sum|a w| {ratio:.3g} (tol {LAYER_REL:.3g})")
+    check(ratio <= LAYER_REL, "the wgmma layer product disagrees with torch.matmul")
+
+    n = PERSISTENT_SIZE
+    pts = torch.rand((n, 3), generator=gen, device=dev) * 3.0 - 1.5
+    d = torch.randn((n, 3), generator=gen, device=dev)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    errs = fused_errors(f"random, {n // 128 + 1} tiles of 128", kp, pts, d)
+    full = fused_mlp.fused_nerf_eval(kp, pts, d)
+    wmma = fused_mlp.fused_nerf_eval_wmma(kp, pts, d)
+    for m in RAGGED_SIZES:
+        part = fused_mlp.fused_nerf_eval(kp, pts[:m].contiguous(), d[:m].contiguous())
+        check(bool(torch.equal(part, full[:m])), f"fused_nerf_eval on {m} points differs from "
+              f"the same points inside a launch of {n}")
+    rel = ((full - wmma).abs() / (1.0 + wmma.abs())).flatten()
+    q = torch.quantile(rel, torch.tensor([0.99, 0.999], device=dev))
+    log(f"fused_nerf_eval alone on {', '.join(map(str, RAGGED_SIZES))} points: exactly the "
+        f"rows of the {n}-point launch; against the wmma forward: rel p99 "
+        f"{float(q[0]):.3g}, p99.9 {float(q[1]):.3g}, max {float(rel.max()):.4g}")
+    check(float(q[0]) <= FUSED_P99_REL and float(q[1]) <= FUSED_P999_REL,
+          "fused_nerf_eval disagrees with the wmma forward")
+    return errs
+
+
+def matmul_chain(kp, pts, dirs):
+    """The forward as a chain of bf16 torch.matmul calls (cuBLAS, float32
+    sums, bf16 results) with bias, ReLU and rounding as float32 PyTorch ops
+    between them: the yardstick of unfused library products."""
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp
+
+    mats, off = [], 0
+    for k, nn in fused_mlp.STREAM_LAYERS:
+        mats.append(kp["wbuf"][off: off + k * nn].view(k, nn))
+        off += k * nn
+    wa = kp["wbuf"][off: off + 256].view(256, 1)
+    wr = kp["wbuf"][off + 256: off + 256 + 384].view(128, 3)
+    b = kp["bbuf"]
+    bf = torch.bfloat16
+
+    def enc(v, s, width):
+        a = fused_mlp._phases(v, s)
+        e = torch.cat([v, torch.sin(a), torch.cos(a)], -1)
+        return torch.nn.functional.pad(e, (0, width - e.shape[1])).to(bf)
+
+    ex, ed = enc(pts, kp["sx"], 64), enc(dirs, kp["sd"], 32)
+    h = ex
+    for l in range(9):
+        x = ex if l == 0 else torch.cat([ex, h], -1) if l == 5 else h
+        y = (x @ mats[l]).float() + b[l * 256: (l + 1) * 256]
+        if l == 7:
+            sigma = (y.clamp_min(0).to(bf) @ wa).float() + b[2432]
+        h = (y.clamp_min(0) if l < 8 else y).to(bf)
+    v = ((torch.cat([h, ed], -1) @ mats[9]).float() + b[2304:2432]).clamp_min(0).to(bf)
+    return torch.cat([(v @ wr).float() + b[2433:2436], sigma], -1)
 
 
 def serve_phase(dev, cfg, counters, n_timed=N_TIMED):
@@ -375,7 +480,7 @@ def path_phase(service, random_errs):
     dev, opts, kp = service.device, service.opts, service.params
     fused_errs, integrate_err = random_errs
     ert, act = opts.ert_threshold if opts.enable_ert else 0.0, opts.sigma_activation
-    timed = None
+    timed = coarse = None
     for label, model, pts, dirs, z, d in path_inputs(service, THETA0, PHI, RADIUS):
         fused_errs.append(fused_errors(label, kp[model], pts, dirs))
         if z is None:
@@ -384,30 +489,51 @@ def path_phase(service, random_errs):
         integrate_err = max(integrate_err, integrate_errors(label, raw, z, d, ert, act))
         if timed is None and model == "fine":
             timed = (pts, dirs, raw, z, d)
+        if coarse is None and model == "coarse":
+            coarse = (kp["coarse"], pts, dirs)
     fused_err = check_fused_max(fused_errs)
 
     pts, dirs, raw, z, d = timed
-    n = pts.shape[0]
-    wk = kp["fine"]
-    out = torch.empty((n, 4), device=dev)
     lib, stream = fused_mlp._lib(), torch.cuda.current_stream().cuda_stream
-    args = [t.data_ptr() for t in (pts, dirs, wk["wbuf"], wk["bbuf"], out)]
-    check(lib.launch_fused_nerf(*args, n, stream) == 0, "launch_fused_nerf failed")
-    ms = time_ms(lambda: lib.launch_fused_nerf(*args, n, stream), reps=10)
-    wrapper_ms = time_ms(lambda: fused_mlp.fused_nerf_eval(wk, pts, dirs), reps=10)
-    plain_ms = time_ms(lambda: fused_mlp.fused_nerf_eval_plain(wk, pts, dirs), reps=3)
-    flops = 2.0 * MACS_PER_POINT * n
-    nbytes = FUSED_IO_BYTES * n + wk["wbuf"].numel() * 2 + wk["bbuf"].numel() * 4
-    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    log(f"fused_nerf_eval first tile fine, {n} pts: kernel {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), wrapper {wrapper_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms")
-    kernels = [{"name": "fused_nerf_eval", "route": "cuda",
-                "source": "nerf_tpu_torch/csrc/fused_mlp.cu",
-                "replaces": "nerf_tpu/ops/fused_mlp.py:129",
-                "max_abs_err": fused_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
-                else "bytes", "library_ms": None}]
+    for label, wk, tp, td in (("first tile fine", kp["fine"], pts, dirs),
+                              ("first tile coarse", *coarse)):
+        n = tp.shape[0]
+        out = torch.empty((n, 4), device=dev)
+        wg_args = [t.data_ptr() for t in (tp, td, wk["wpack"], wk["wbuf"], wk["bbuf"], out)]
+        wm_args = [t.data_ptr() for t in (tp, td, wk["wbuf"], wk["bbuf"], out)]
+        check(lib.launch_fused_nerf(*wg_args, n, stream) == 0, "launch_fused_nerf failed")
+        check(lib.launch_fused_nerf_wmma(*wm_args, n, stream) == 0,
+              "launch_fused_nerf_wmma failed")
+        turns = []  # wgmma, wmma, wmma, wgmma
+        for fn in ("wgmma", "wmma", "wmma", "wgmma"):
+            call = ((lambda: lib.launch_fused_nerf(*wg_args, n, stream)) if fn == "wgmma"
+                    else (lambda: lib.launch_fused_nerf_wmma(*wm_args, n, stream)))
+            turns.append(time_ms(call, reps=10))
+        ms, wmma_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        wrapper_ms = time_ms(lambda: fused_mlp.fused_nerf_eval(wk, tp, td), reps=10)
+        plain_ms = time_ms(lambda: fused_mlp.fused_nerf_eval_plain(wk, tp, td), reps=3)
+        chain_ms = time_ms(lambda: matmul_chain(wk, tp, td), reps=5)
+        want = fused_mlp.fused_nerf_eval_plain(wk, tp, td)
+        chain_rel = float(((matmul_chain(wk, tp, td) - want).abs() / (1.0 + want.abs()))
+                          .flatten().quantile(0.99))
+        flops = 2.0 * MACS_PER_POINT * n
+        nbytes = FUSED_IO_BYTES * n + wk["wbuf"].numel() * 2 + wk["bbuf"].numel() * 4
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        log(f"fused_nerf_eval {label}, {n} pts: wgmma kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s, {bound / ms:.3f} of the bound), wmma kernel {wmma_ms:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in turns)}), wrapper {wrapper_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms")
+        log(f"yardstick, {label}: a chain of bf16 torch.matmul calls with float32 epilogues "
+            f"{chain_ms:.4f} ms (rel p99 {chain_rel:.3g} from the plain version)")
+        check(ms < wmma_ms, f"the wgmma kernel is not faster than the wmma kernel on {label}")
+        if label == "first tile fine":
+            kernels = [{"name": "fused_nerf_eval", "route": "cuda",
+                        "source": "nerf_tpu_torch/csrc/fused_mlp.cu",
+                        "replaces": "nerf_tpu/ops/fused_mlp.py:129",
+                        "max_abs_err": fused_err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound,
+                        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
+                        else "bytes", "library_ms": None}]
 
     nr, s = z.shape
     outs = [torch.empty(shape, device=dev) for shape in ((nr, 3), (nr,), (nr,), (nr, s))]
@@ -1063,9 +1189,14 @@ def main() -> int:
     log("phase 2: build kernels")
     secs = build.build()
     for name in build.sources():
-        lines = [l.strip() for l in build.build_log(name).splitlines()
-                 if "registers" in l or "spill" in l or "smem" in l]
-        log(f"built {name} in {secs.get(name, 0.0):.1f} s: " + " | ".join(lines))
+        log(f"built {name} in {secs.get(name, 0.0):.1f} s")
+        for entry, stats in ptxas_entries(build.build_log(name)):
+            log(f"  {entry}: {stats}")
+            check(not ("wgmma" in entry and re.search(r"[1-9]\d* bytes spill", stats)),
+                  f"{entry} spills registers")
+        for l in build.build_log(name).splitlines():  # e.g. wgmma serialized, setmaxnreg ignored
+            if "Performance" in l or "setmaxnreg" in l or "serializ" in l:
+                log(f"  ptxas: {l.strip()}")
 
     log("phase 3: kernels against their plain versions on random inputs "
         "(torch.backends.cuda.matmul.allow_tf32 = False for the plain side)")
@@ -1074,6 +1205,7 @@ def main() -> int:
     params = load_params(os.path.join(root, "checkpoints/nerf/lego/nerf"))
     kp = {k: v.to(dev) for k, v in fused_mlp.repack_params(params["coarse"]).items()}
     random_errs = random_phase(kp, dev)
+    random_errs[0].append(wgmma_phase(kp, dev))
     hash_errs = hash_random_phase(dev)
 
     log("phase 4: serve")

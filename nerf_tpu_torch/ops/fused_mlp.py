@@ -1,9 +1,10 @@
 """Fused frequency encoding + NeRF-MLP forward; counterpart of ``nerf_tpu/ops/fused_mlp.py``.
 
 ``fused_nerf_eval`` launches the CUDA kernel ``csrc/fused_mlp.cu`` (the port
-of the Pallas ``_fused_kernel``, ``nerf_tpu/ops/fused_mlp.py:129``) on CUDA
-tensors and runs ``fused_nerf_eval_plain``, the same math in plain PyTorch,
-on CPU tensors. Both read the weights as ``repack_params`` lays them out:
+of the Pallas ``_fused_kernel``, ``nerf_tpu/ops/fused_mlp.py:129``; wgmma,
+its weights streamed from ``wpack``) on CUDA tensors and runs
+``fused_nerf_eval_plain``, the same math in plain PyTorch, on CPU tensors.
+Both read the weights as ``repack_params`` lays them out:
 
     layer0:  h = relu(x@W0x + sin(a)@W0s + cos(a)@W0c + b0),  a = x * bands
     layers 1..4: h = relu(h@Wi + bi)
@@ -38,7 +39,13 @@ from . import build
 # packed kernel buffers (csrc/fused_mlp.cu reports the same sizes)
 WBUF_SIZE = 594_560  # bf16 weights, in the order of _pack_kernel_buffers
 BBUF_SIZE = 2_436  # f32 biases
+WPACK_SIZE = 593_920  # bf16, the weight stream of the wgmma kernel (pack_weight_stream)
 _EMB_PAD = 16  # the kernel pads the xyz (63) and dir (27) encodings to 16-multiples
+# (K, N) of the ten layers' matrices, in wbuf order from offset 0: layer 0 on
+# the padded xyz encoding, layers 1-4, the skip layer [enc_x, h], layers 6-7,
+# the feature layer, the view layer [feat, enc_d]; the heads follow them
+STREAM_LAYERS = ((64, 256), (256, 256), (256, 256), (256, 256), (256, 256), (320, 256),
+                 (256, 256), (256, 256), (256, 256), (288, 128))
 
 
 def _emb_perm(input_dim: int, num_freqs: int) -> np.ndarray:
@@ -85,11 +92,39 @@ def _pack_kernel_buffers(kp: Dict[str, torch.Tensor]):
     return wbuf, bbuf
 
 
+def _k_major(m: torch.Tensor) -> torch.Tensor:
+    """[K, N] -> flat [K/8, N, 8]: wgmma's K-major canonical layout without
+    swizzle (8 K-values of one column are 16 contiguous bytes)."""
+    k, n = m.shape
+    return m.reshape(k // 8, 8, n).transpose(1, 2).reshape(-1)
+
+
+def pack_weight_stream(wbuf: torch.Tensor) -> torch.Tensor:
+    """The wgmma kernel's weight stream: each layer's [K, N] matrix of
+    ``wbuf`` in the K-major layout of ``_k_major``, layer after layer. The
+    kernel copies it in chunks of 64 K-rows."""
+    parts, off = [], 0
+    for k, n in STREAM_LAYERS:
+        parts.append(_k_major(wbuf[off: off + k * n].view(k, n)))
+        off += k * n
+    return torch.cat(parts)
+
+
+def unpack_weight_stream(wpack: torch.Tensor):
+    """The inverse of ``pack_weight_stream``: the ten [K, N] matrices."""
+    mats, off = [], 0
+    for k, n in STREAM_LAYERS:
+        mats.append(wpack[off: off + k * n].reshape(k // 8, n, 8).transpose(1, 2).reshape(k, n))
+        off += k * n
+    return mats
+
+
 def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 4,
                   weight_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """JAX-layout MLP tree (weights [in, out], e.g. ``NeRFMLP.to_tree()``) ->
     the kernel's weight dict: the entries of ``nerf_tpu``'s ``repack_params``
-    plus ``wbuf``/``bbuf``, the flat buffers the CUDA kernel reads."""
+    plus ``wbuf``/``bbuf``, the flat buffers the CUDA kernels read, and
+    ``wpack``, the forward kernel's weight stream (``pack_weight_stream``)."""
     d = 3
     perm_x = torch.as_tensor(_emb_perm(d, xyz_freqs))
     perm_d = torch.as_tensor(_emb_perm(d, dir_freqs))
@@ -131,6 +166,7 @@ def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 
         kp[f"w{i}"] = wd(pl_[i]["w"])
         kp[f"b{i}"] = bias(pl_[i]["b"])
     kp["wbuf"], kp["bbuf"] = _pack_kernel_buffers(kp)
+    kp["wpack"] = pack_weight_stream(kp["wbuf"])
     return kp
 
 
@@ -173,6 +209,18 @@ def fused_nerf_eval_plain(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
     return torch.cat([rgb, sigma], dim=-1).float()
 
 
+def _check_launch(kp, pts, dirs) -> int:
+    P = pts.shape[0]
+    if P > build.MAX_LAUNCH_ROWS:
+        raise ValueError(f"{P} points in one call; split it into calls of at most "
+                         f"{build.MAX_LAUNCH_ROWS}")
+    build.check_cuda("pts", pts, torch.float32, (P, 3))
+    build.check_cuda("dirs", dirs, torch.float32, (P, 3))
+    build.check_cuda("wbuf", kp["wbuf"], torch.bfloat16, (WBUF_SIZE,), align=32)
+    build.check_cuda("bbuf", kp["bbuf"], torch.float32, (BBUF_SIZE,))
+    return P
+
+
 def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
                     dirs: torch.Tensor) -> torch.Tensor:
     """pts, dirs: [P, 3] float32 -> raw [P, 4] (rgb_raw, sigma_raw) float32.
@@ -186,19 +234,13 @@ def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
                            "for gradients")
     if pts.device.type == "cpu":
         return fused_nerf_eval_plain(kp, pts, dirs)
-    P = pts.shape[0]
-    if P > build.MAX_LAUNCH_ROWS:
-        raise ValueError(f"{P} points in one call; split it into calls of at most "
-                         f"{build.MAX_LAUNCH_ROWS}")
-    build.check_cuda("pts", pts, torch.float32, (P, 3))
-    build.check_cuda("dirs", dirs, torch.float32, (P, 3))
-    build.check_cuda("wbuf", kp["wbuf"], torch.bfloat16, (WBUF_SIZE,), align=32)
-    build.check_cuda("bbuf", kp["bbuf"], torch.float32, (BBUF_SIZE,))
+    P = _check_launch(kp, pts, dirs)
+    build.check_cuda("wpack", kp["wpack"], torch.bfloat16, (WPACK_SIZE,), align=16)
     out = torch.empty((P, 4), dtype=torch.float32, device=pts.device)
-    lib = _lib()
-    rc = lib.launch_fused_nerf(pts.data_ptr(), dirs.data_ptr(), kp["wbuf"].data_ptr(),
-                               kp["bbuf"].data_ptr(), out.data_ptr(), P,
-                               torch.cuda.current_stream(pts.device).cuda_stream)
+    rc = _lib().launch_fused_nerf(pts.data_ptr(), dirs.data_ptr(), kp["wpack"].data_ptr(),
+                                  kp["wbuf"].data_ptr(), kp["bbuf"].data_ptr(),
+                                  out.data_ptr(), P,
+                                  torch.cuda.current_stream(pts.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_nerf kernel launch failed: CUDA error {rc}")
     fused_nerf_eval.launches += 1
@@ -208,19 +250,54 @@ def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
 fused_nerf_eval.launches = 0
 
 
+def fused_nerf_eval_wmma(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
+                         dirs: torch.Tensor) -> torch.Tensor:
+    """The previous forward kernel (nvcuda::wmma, ``csrc/fused_mlp.cuh``; the
+    backward still recomputes its forward with it), CUDA tensors only. No
+    path of the port calls it: it is the yardstick that the GPU tests and
+    ``chip_smoke.py`` hold ``fused_nerf_eval`` against."""
+    P = _check_launch(kp, pts, dirs)
+    out = torch.empty((P, 4), dtype=torch.float32, device=pts.device)
+    rc = _lib().launch_fused_nerf_wmma(pts.data_ptr(), dirs.data_ptr(), kp["wbuf"].data_ptr(),
+                                       kp["bbuf"].data_ptr(), out.data_ptr(), P,
+                                       torch.cuda.current_stream(pts.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_nerf wmma kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def wgmma_layer_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a [128, 256] @ w [256, 256] (bf16 CUDA tensors) -> float32, through the
+    forward kernel's own ring, descriptors and wgmma products: the check of
+    those parts alone, for the GPU tests and ``chip_smoke.py``."""
+    build.check_cuda("a", a, torch.bfloat16, (128, 256), align=16)
+    build.check_cuda("w", w, torch.bfloat16, (256, 256))
+    wp = _k_major(w)
+    out = torch.empty((128, 256), dtype=torch.float32, device=a.device)
+    rc = _lib().launch_wgmma_layer_test(a.data_ptr(), wp.data_ptr(), out.data_ptr(),
+                                        torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wgmma layer test launch failed: CUDA error {rc}")
+    return out
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_mlp")
     p = ctypes.c_void_p
-    lib.launch_fused_nerf.argtypes = [p, p, p, p, p, ctypes.c_int, p]
-    lib.launch_fused_nerf.restype = ctypes.c_int
-    lib.fused_nerf_buffer_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.launch_fused_nerf.argtypes = [p, p, p, p, p, p, ctypes.c_int, p]
+    lib.launch_fused_nerf_wmma.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+    lib.launch_wgmma_layer_test.argtypes = [p, p, p, p]
+    for fn in (lib.launch_fused_nerf, lib.launch_fused_nerf_wmma, lib.launch_wgmma_layer_test):
+        fn.restype = ctypes.c_int
+    lib.fused_nerf_buffer_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     lib.fused_nerf_buffer_sizes.restype = None
-    w, b = ctypes.c_int(), ctypes.c_int()
-    lib.fused_nerf_buffer_sizes(ctypes.byref(w), ctypes.byref(b))
-    if (w.value, b.value) != (WBUF_SIZE, BBUF_SIZE):
-        raise RuntimeError(f"fused_mlp.cu buffer sizes {(w.value, b.value)} "
-                           f"differ from {(WBUF_SIZE, BBUF_SIZE)}")
+    sizes = [ctypes.c_int() for _ in range(3)]
+    lib.fused_nerf_buffer_sizes(*(ctypes.byref(v) for v in sizes))
+    want = (WBUF_SIZE, BBUF_SIZE, WPACK_SIZE)
+    if tuple(v.value for v in sizes) != want:
+        raise RuntimeError(f"fused_mlp.cu buffer sizes {tuple(v.value for v in sizes)} "
+                           f"differ from {want}")
     return lib
 
 

@@ -106,6 +106,61 @@ def test_kernel_buffer_layout(lego):
     torch.testing.assert_close(bbuf[2432:], torch.cat([kp["ba"][0], kp["br"][0]]))
 
 
+def _random_tree(like, seed):
+    """A model of the lego shapes with weights from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda v: (rng.normal(size=np.shape(v)) * 0.1).astype(np.float32), like)
+
+
+def _layer_matrices(kp):
+    """The ten [K, N] layer matrices, built from repack_params' named entries
+    (not from its buffers), the encoding rows zero-padded to 16-multiples."""
+    def pad(w):
+        return torch.cat([w, w.new_zeros((-w.shape[0]) % 16, w.shape[1])])
+
+    emb0 = pad(torch.cat([kp["w0x"], kp["w0s"], kp["w0c"]]))
+    emb5 = pad(torch.cat([kp["w5x"], kp["w5s"], kp["w5c"]]))
+    embv = pad(torch.cat([kp["wvx"], kp["wvs"], kp["wvc"]]))
+    return [emb0, kp["w1"], kp["w2"], kp["w3"], kp["w4"], torch.cat([emb5, kp["w5h"]]),
+            kp["w6"], kp["w7"], kp["wf"], torch.cat([kp["wvf"], embv])]
+
+
+@pytest.mark.parametrize("model", ["lego", "random"])
+def test_weight_stream_gives_back_every_matrix(lego, model):
+    """wpack, the wgmma kernel's weight stream, unpacks to every layer matrix
+    exactly, zero padding included, and holds element (k, n) of a [K, N]
+    layer at (k // 8) * N * 8 + n * 8 + k % 8 from the layer's start."""
+    tree = lego["coarse"] if model == "lego" else _random_tree(lego["coarse"], 3)
+    kp = fused_mlp.repack_params(tree)
+    wpack = kp["wpack"]
+    assert wpack.shape == (fused_mlp.WPACK_SIZE,) and wpack.dtype == torch.bfloat16
+    want = _layer_matrices(kp)
+    got = fused_mlp.unpack_weight_stream(wpack)
+    assert [tuple(m.shape) for m in got] == list(fused_mlp.STREAM_LAYERS)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), i
+    assert not got[0][63].any() and not got[5][63].any() and not got[9][283:].any()
+    off = sum(k * n for k, n in fused_mlp.STREAM_LAYERS[:9])  # the view layer [288, 128]
+    for k, n in ((0, 0), (7, 127), (8, 1), (283, 5), (287, 127)):
+        assert wpack[off + (k // 8) * 128 * 8 + n * 8 + k % 8] == want[9][k, n]
+    torch.testing.assert_close(fused_mlp.pack_weight_stream(kp["wbuf"]), wpack, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("model", ["lego", "random"])
+def test_repack_keeps_the_backward_buffers(lego, model):
+    """wbuf and bbuf, which the backward kernel reads, are the layer matrices
+    row-major in layer order, then wa and wr, and the biases in order."""
+    tree = lego["coarse"] if model == "lego" else _random_tree(lego["coarse"], 4)
+    kp = fused_mlp.repack_params(tree)
+    wbuf = torch.cat([m.reshape(-1) for m in _layer_matrices(kp)]
+                     + [kp["wa"].reshape(-1), kp["wr"].reshape(-1)])
+    bbuf = torch.cat([kp[k].reshape(-1) for k in ("b0", "b1", "b2", "b3", "b4", "b5", "b6",
+                                                  "b7", "bf", "bv", "ba", "br")])
+    assert torch.equal(kp["wbuf"], wbuf) and torch.equal(kp["bbuf"], bbuf)
+    assert wbuf.numel() == fused_mlp.WBUF_SIZE and bbuf.numel() == fused_mlp.BBUF_SIZE
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("n", [512, 300])  # 300: not a multiple of the tile
 def test_plain_matches_pallas_interpret(lego, dtype, n):
@@ -194,6 +249,17 @@ def test_plain_float64_sums_agree_with_float32_sums(lego):
         want = fused_mlp.fused_nerf_eval_plain(kp, pts, d)
         assert got.dtype == torch.float32
         assert_close(got.numpy(), want.numpy(), dtype)
+
+
+def test_fused_variants_apply_to_the_kernel_source():
+    """Every variant of tools/fused_variants.py still finds the lines it
+    replaces in csrc/fused_mlp.cu (the tool raises when one does not)."""
+    from nerf_tpu_torch.tools import fused_variants
+
+    src = fused_variants.SOURCE.read_text()
+    for name in fused_variants.VARIANTS:
+        out = fused_variants.variant_source(name, src)
+        assert (out == src) == (name == "kernel"), name
 
 
 def test_fused_accuracy_tool_runs_on_the_cpu(capsys):
