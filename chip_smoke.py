@@ -7,7 +7,7 @@ Phases, each printed with its elapsed seconds:
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel under nerf_tpu_torch/csrc with plain nvcc, all at once,
      and print ptxas's registers, stack and spills for each kernel entry (the
-     wgmma forward must not spill);
+     wgmma kernels must not spill);
   3. each kernel against its plain PyTorch version on random inputs (the
      fused MLP on 65,536 points; integrate with and without ERT, relu and
      softplus, S = 64 and 192); the fused MLP's wgmma path: one layer's
@@ -15,7 +15,8 @@ Phases, each printed with its elapsed seconds:
      persistent grid and a ragged tile) against the plain version and the
      wmma forward, and every ragged prefix (1, 63, 64, 127, 128, 129,
      65,553 points) launched alone, exactly equal to the same rows of that
-     launch;
+     launch; B2's weight-gradient product (MN-major operands) against
+     torch.matmul;
   4. serve: a RenderService for configs/nerf/lego.yaml with the committed
      checkpoint (ESS grid rebuilt through the fused kernel), an HTTP server
      on 127.0.0.1, one warm-up GET /frame at 200x200 (the startup figure),
@@ -42,14 +43,18 @@ Phases, each printed with its elapsed seconds:
   8. from the state that run resumed (epoch 49) and its ESS grid, on one
      batch of 1024 rays of the model's own renders at 8 orbit poses: the fused backward (B2) against its plain version
      on the step's own coarse and fine inputs with the real loss's upstream
-     gradients, and the whole train step (loss and every parameter
-     gradient) through the kernels against the same step through the plain
-     versions;
+     gradients (its recomputed forward equal to fused_nerf_eval's output
+     bit for bit, its mask bits those of its stash), and the whole train
+     step (loss and every parameter gradient) through the kernels against
+     the same step through the plain versions;
   9. 10 steps on the kernel path against 10 on the plain path from that
      state with the same batches;
  10. times: a window of warm train steps (ms per step, train rays/s, the
-     kernels' launches per step) and B2 on the fine batch beside its bound
-     and its plain version;
+     kernels' launches per step); B2 on the step's coarse and fine batches
+     timed in turns with the wmma backward, which it must beat, each
+     of its five launches alone, its bound and this design's byte floor;
+     on the fine batch also its plain version and a yardstick, its products
+     as bf16 torch.matmul calls over the unpacked stash and gbuf;
  11. the hash-grid model, configs/nerf/lego_hashgrid_cellpack.yaml at full
      width (16 levels x 2 features, 2^19 cellpack tables of [16, 65536, 16]
      bf16, the 4x128 MLP), trained from init_hashgrid tables through the
@@ -175,6 +180,13 @@ PEAK_BYTES = 3.35e12
 # - the fused kernel on a prefix of points launched alone against the same
 #   rows of a larger launch: exact (a row's arithmetic does not depend on
 #   its tile, its block or the rows around it).
+# - B2's recomputed forward against fused_nerf_eval on the same points:
+#   exact (the same kernel code, fused_mlp_wgmma.cuh); its mask bits against
+#   those the plain mask_bits forms from its own stash: exact.
+# - one weight-gradient product of B2 (64 x 256 over 64 points, both
+#   operands MN-major) against torch.matmul in float32: within 2^-14 sum
+#   |x g|, as the layer product above (float32 sums of 64 terms in any two
+#   orders lie within 64 x 2^-24 sum |x g|).
 FUSED_P99_REL, FUSED_P999_REL, FUSED_MAX_OVER_PLAIN64 = 1e-3, 1e-2, 2.0
 LAYER_REL = 2.0 ** -14
 RAGGED_SIZES, PERSISTENT_SIZE = (1, 63, 64, 127, 128, 129, 65_553), 84_525
@@ -334,7 +346,7 @@ def wgmma_phase(kp, dev):
     (returned for the gates) and against the wmma forward; each ragged
     prefix launched alone against the same rows of that launch."""
     import torch
-    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd
 
     gen = torch.Generator(device=dev).manual_seed(7)
     a = torch.randn((128, 256), generator=gen, device=dev).to(torch.bfloat16)
@@ -345,6 +357,14 @@ def wgmma_phase(kp, dev):
     log(f"wgmma layer product 128x256x256 against torch.matmul in float32: max |err| / "
         f"sum|a w| {ratio:.3g} (tol {LAYER_REL:.3g})")
     check(ratio <= LAYER_REL, "the wgmma layer product disagrees with torch.matmul")
+    x = torch.randn((64, 64), generator=gen, device=dev).to(torch.bfloat16)
+    gg = torch.randn((64, 256), generator=gen, device=dev).to(torch.bfloat16)
+    got = fused_mlp_bwd.wgrad_product(x, gg)
+    want = x.float().T @ gg.float()
+    ratio = float(((got - want).abs() / (x.float().abs().T @ gg.float().abs())).max())
+    log(f"B2's weight-gradient product 64x256 over 64 points (MN-major operands) against "
+        f"torch.matmul in float32: max |err| / sum|x g| {ratio:.3g} (tol {LAYER_REL:.3g})")
+    check(ratio <= LAYER_REL, "B2's weight-gradient product disagrees with torch.matmul")
 
     n = PERSISTENT_SIZE
     pts = torch.rand((n, 3), generator=gen, device=dev) * 3.0 - 1.5
@@ -722,7 +742,7 @@ def grads_phase(cfg, state, grid, data, dev):
     """B2 on the path's own inputs, and one whole step, kernels against plain."""
     import torch
     from nerf_tpu_torch.ops import fused_mlp_bwd as fb
-    from nerf_tpu_torch.ops.fused_mlp import repack_params
+    from nerf_tpu_torch.ops.fused_mlp import fused_nerf_eval, repack_params
     from nerf_tpu_torch.render.renderer import RenderOptions
     from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch
 
@@ -749,9 +769,17 @@ def grads_phase(cfg, state, grid, data, dev):
     max_err, worst, worst64 = 0.0, 0.0, 0.0
     for kp, pts, dirs, g in sorted(seen, key=lambda c: c[1].shape[0]):
         model = "coarse" if pts.shape[0] == ro.shape[0] * opts.n_samples else "fine"
-        kgrads, dpts, ddirs, stash = fb.launch(kp, pts, dirs, g)
-        got = flat((kgrads, dpts, ddirs))
-        acts = fb.stash_activations(kp, stash, pts, dirs)
+        full = fb.launch_full(kp, pts, dirs, g)
+        got = flat((full["kgrads"], full["dpts"], full["ddirs"]))
+        acts = fb.stash_activations(kp, full["stash"], pts, dirs)
+        raw = fused_nerf_eval(kp, pts, dirs)
+        m = full["masks"].shape[0] * 64
+        zeros = torch.zeros((m, 3), device=dev)
+        padded = fb.stash_activations(kp, fb.unpack_slabs(full["stash_slabs"], m), zeros, zeros)
+        check(bool(torch.equal(full["raw"], raw)), f"B2's recomputed forward on {model} differs "
+              "from fused_nerf_eval's output")
+        check(bool(torch.equal(fb.mask_bits(padded), full["masks"])),
+              f"B2's mask bits on {model} are not those of its stash")
         own = flat(fb.backward_from_activations(kp, acts, g))
         own64 = flat(fb.backward_from_activations(kp, acts, g, accumulate=torch.float64))
         want = flat(fb.fused_nerf_bwd_plain(kp, pts, dirs, g))
@@ -766,7 +794,8 @@ def grads_phase(cfg, state, grid, data, dev):
         worst = max(worst, max(e[1] for e in errs))
         worst64 = max(worst64, max(e[1] for e in errs64))
         max_err = max(max_err, max(e[2] for e in errs))
-        log(f"fused_nerf_bwd {model}, {pts.shape[0]} pts of one step, against the plain "
+        log(f"fused_nerf_bwd {model}, {pts.shape[0]} pts of one step: recomputed raw equals "
+            f"fused_nerf_eval's bit for bit, mask bits those of its stash; against the plain "
             f"backward on the kernel's stash: relative norm err max {fro:.3g} at "
             f"{names[max(range(len(errs)), key=lambda i: errs[i][0])]} (tol {BWD_FRO_REL}; "
             f"float64 sums {max(e[0] for e in errs64):.3g}); max|k-p|/max|p| "
@@ -801,8 +830,7 @@ def grads_phase(cfg, state, grid, data, dev):
         f"{OVER_BF16_SPREAD} x))")
     check(math.isfinite(float(lk)) and loss_rel <= STEP_LOSS_REL, "train step loss disagrees")
     check(r <= 1.0, "train step gradients disagree")
-    fine = max(seen, key=lambda c: c[1].shape[0])
-    return max_err, fine
+    return max_err, sorted(seen, key=lambda c: c[1].shape[0])
 
 
 def trajectory_phase(cfg, state, grid, data, dev):
@@ -834,12 +862,13 @@ def trajectory_phase(cfg, state, grid, data, dev):
           "the kernel path's trajectory leaves the plain path's")
 
 
-def train_times_phase(cfg, state, grid, data, dev, fine):
-    """A window of warm train steps, and B2 on the fine batch."""
+def train_times_phase(cfg, state, grid, data, dev, batches):
+    """A window of warm train steps, and B2 on the step's coarse and fine
+    batches (``batches``: the spied (kp, pts, dirs, g), coarse first)."""
     import numpy as np
     import torch
     from nerf_tpu_torch.ops import fused_mlp_bwd
-    from nerf_tpu_torch.ops.fused_mlp import BBUF_SIZE, WBUF_SIZE
+    from nerf_tpu_torch.ops.fused_mlp import BBUF_SIZE, WBUF_SIZE, WPACK_SIZE
     from nerf_tpu_torch.render.renderer import RenderOptions
     from nerf_tpu_torch.train.optim import make_optimizer
     from nerf_tpu_torch.train.state import train_step
@@ -869,33 +898,80 @@ def train_times_phase(cfg, state, grid, data, dev, fine):
         f"median {np.median(w):.3f}, max {w.max():.3f}, std {w.std():.3f} ms; launches per "
         f"step {per_step}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    kp, pts, dirs, g = fine
-    n = pts.shape[0]
-    lib, sld, gld, pst = fused_mlp_bwd._lib()
-    splits = fused_mlp_bwd.splits_for(n)
-    scratch = [torch.empty((n, sld), dtype=torch.bfloat16, device=dev),
-               torch.empty((n, gld), dtype=torch.bfloat16, device=dev),
-               torch.empty((splits, pst), device=dev),
-               torch.empty(WBUF_SIZE + BBUF_SIZE, device=dev)]
-    stream = torch.cuda.current_stream().cuda_stream
-    args = [pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), kp["wbuf"].data_ptr(),
-            kp["bbuf"].data_ptr(), *(t.data_ptr() for t in scratch), None, None, n, splits, 0,
-            stream]
-    check(n % 64 == 0 and lib.launch_fused_nerf_bwd(*args) == 0, "launch_fused_nerf_bwd failed")
-    ms = time_ms(lambda: lib.launch_fused_nerf_bwd(*args), reps=10)
+    lib = fused_mlp_bwd._lib()[0]
+    out = {}
+    for label, (kp, pts, dirs, g) in zip(("coarse", "fine"), batches):
+        n = pts.shape[0]
+        new = fused_mlp_bwd.launch_full(kp, pts, dirs, g, input_grads=False)
+        old = fused_mlp_bwd.fused_nerf_bwd_wmma(kp, pts, dirs, g, input_grads=False)
+        args = list(new["args"])
+        check(lib.launch_fused_nerf_bwd(*args) == 0 and
+              lib.launch_fused_nerf_bwd_wmma(*old["args"]) == 0, "B2 launch failed")
+        run_new = lambda: lib.launch_fused_nerf_bwd(*args)  # noqa: E731
+        run_old = lambda: lib.launch_fused_nerf_bwd_wmma(*old["args"])  # noqa: E731
+        turns = [time_ms(f, reps=10) for f in (run_new, run_old, run_old, run_new)]
+        ms, wmma_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        parts = {}
+        for name, bit in (("forward + stash", 1), ("chain", 2), ("dW", 4), ("heads", 8),
+                          ("reduce", 16)):
+            args[-2] = bit
+            parts[name] = time_ms(run_new, reps=10)
+        args[-2] = fused_mlp_bwd.PHASES_ALL
+        flops = 2.0 * BWD_MACS_PER_POINT * n
+        nbytes = 40 * n + WBUF_SIZE * 2 + BBUF_SIZE * 4 + (WBUF_SIZE + BBUF_SIZE) * 4
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        # this design's own bytes: the stash and gbuf written once and read
+        # once by dW, the mask bits written and read once, the inputs once
+        floor = (n * (2 * 2 * (STASH_WIDTH + GBUF_WIDTH) + 2 * MASK_BYTES + 40)
+                 + 3 * WPACK_SIZE * 2) / PEAK_BYTES * 1e3
+        log(f"fused_nerf_bwd {label} batch, {n} pts: kernels {ms:.4f} ms ({turns[0]:.4f}, "
+            f"{turns[3]:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound), "
+            f"the wmma backward {wmma_ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}) in turns; "
+            f"launches {', '.join(f'{k} {v:.4f}' for k, v in parts.items())} ms; bound "
+            f"{bound:.4f} ms ({BWD_MACS_PER_POINT} MACs a point), this design's byte floor "
+            f"{floor:.4f} ms")
+        check(ms < wmma_ms, f"B2 on the {label} batch is not faster than the wmma backward")
+        out[label] = {"ms": ms, "bound_ms": bound, "bound_by":
+                      "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"}
+    kp, pts, dirs, g = batches[-1]
     wrapper_ms = time_ms(lambda: fused_mlp_bwd.fused_nerf_bwd(kp, pts, dirs, g, input_grads=False),
                          reps=10)
     plain_ms = time_ms(lambda: fused_mlp_bwd.fused_nerf_bwd_plain(kp, pts, dirs, g,
                                                                   input_grads=False), reps=3)
-    flops = 2.0 * BWD_MACS_PER_POINT * n
-    nbytes = 40 * n + WBUF_SIZE * 2 + BBUF_SIZE * 4 + (WBUF_SIZE + BBUF_SIZE) * 4
-    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    log(f"fused_nerf_bwd fine batch, {n} pts: kernels {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-        f"TFLOP/s), wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({BWD_MACS_PER_POINT} MACs a point; {splits} splits)")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
-            else "bytes"}
+    stash = fused_mlp_bwd.unpack_slabs(new["stash_slabs"], pts.shape[0])
+    gbuf = fused_mlp_bwd.unpack_slabs(new["gbuf_slabs"], pts.shape[0])
+    yard_ms = time_ms(lambda: bwd_matmuls(kp, stash, gbuf), reps=3)
+    log(f"fused_nerf_bwd fine batch: wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"yardstick (its 19 products as bf16 torch.matmul calls over the unpacked stash and "
+        f"gbuf, no masks or roundings between them) {yard_ms:.4f} ms")
+    return {**out["fine"], "plain_ms": plain_ms}
+
+
+# B2's scratch a point: stash and gbuf columns (bf16), mask bytes
+STASH_WIDTH, GBUF_WIDTH, MASK_BYTES = 2528, 2432, 272
+# (stash column, K, gbuf column, N) of the ten matrix layers' X and G
+BWD_LAYERS = ((1024, 64, 0, 256), (0, 256, 256, 256), (256, 256, 512, 256),
+              (512, 256, 768, 256), (768, 256, 1024, 256), (1024, 320, 1280, 256),
+              (1344, 256, 1536, 256), (1600, 256, 1792, 256), (1856, 256, 2048, 256),
+              (2112, 288, 2304, 128))
+
+
+def bwd_matmuls(kp, stash, gbuf):
+    """B2's products as bf16 torch.matmul calls (cuBLAS, float32 sums): dW =
+    X^T G for every layer and dX = G W^T down the chain (view, feature and
+    trunk layers 7-1, the skip layer on its h5 rows): the yardstick of
+    unfused library products."""
+    from nerf_tpu_torch.ops import fused_mlp
+
+    mats = fused_mlp._stream_matrices(kp["wbuf"])
+    out = []
+    for i, (xc, k, gc, n) in enumerate(BWD_LAYERS):
+        gl = gbuf[:, gc: gc + n]
+        out.append(stash[:, xc: xc + k].T @ gl)
+        if i >= 1:
+            w = mats[i][64:] if i == 5 else mats[i][:256]
+            out.append(gl @ w.T)
+    return out
 
 
 def _hash_counters():
@@ -1237,11 +1313,11 @@ def main() -> int:
     grid = service.grid
     data = _model_views(service)
     log("phase 8: the backward kernel and a whole step against their plain versions")
-    bwd_err, fine = grads_phase(cfg, state, grid, data, dev)
+    bwd_err, batches = grads_phase(cfg, state, grid, data, dev)
     log("phase 9: trajectory")
     trajectory_phase(cfg, state, grid, data, dev)
     log("phase 10: train times")
-    bwd = train_times_phase(cfg, state, grid, data, dev, fine)
+    bwd = train_times_phase(cfg, state, grid, data, dev, batches)
     kernels.insert(1, {"name": "fused_nerf_bwd", "route": "cuda",
                        "source": "nerf_tpu_torch/csrc/fused_mlp_bwd.cu",
                        "replaces": "nerf_tpu/ops/fused_mlp_bwd.py:43", "max_abs_err": bwd_err,

@@ -119,12 +119,51 @@ def unpack_weight_stream(wpack: torch.Tensor):
     return mats
 
 
+# The backward chain's weight stream (csrc/fused_mlp_bwd.cu): W^T of each
+# layer, in chain order, as (STREAM_LAYERS index, first row, rows) of its
+# [K, N] matrix; the encoding parts (enc_d of the view layer, enc_x of the
+# skip layer and layer 0) are read only with input gradients.
+BWD_STREAM = ((9, 0, 256), (9, 256, 32), (8, 0, 256), (7, 0, 256), (6, 0, 256), (5, 64, 256),
+              (5, 0, 64), (4, 0, 256), (3, 0, 256), (2, 0, 256), (1, 0, 256), (0, 0, 64))
+
+
+def _stream_matrices(wbuf: torch.Tensor):
+    mats, off = [], 0
+    for k, n in STREAM_LAYERS:
+        mats.append(wbuf[off: off + k * n].view(k, n))
+        off += k * n
+    return mats
+
+
+def pack_bwd_stream(wbuf: torch.Tensor) -> torch.Tensor:
+    """The backward chain's weight stream: for each part of ``BWD_STREAM``,
+    rows r0..r0+rows of the layer's [K, N] matrix transposed ([N, rows],
+    out = G @ W^T) in the K-major layout of ``_k_major``. Same size as
+    ``pack_weight_stream``'s."""
+    mats = _stream_matrices(wbuf)
+    return torch.cat([_k_major(mats[i][r0: r0 + rows].T.contiguous())
+                      for i, r0, rows in BWD_STREAM])
+
+
+def unpack_bwd_stream(wpack_bwd: torch.Tensor):
+    """The inverse of ``pack_bwd_stream``: the ten [K, N] matrices."""
+    parts, off = {}, 0
+    for i, r0, rows in BWD_STREAM:
+        n = STREAM_LAYERS[i][1]
+        t = wpack_bwd[off: off + rows * n].reshape(n // 8, rows, 8).transpose(1, 2)
+        parts[(i, r0)] = t.reshape(n, rows).T
+        off += rows * n
+    return [torch.cat([parts[key] for key in sorted(k for k in parts if k[0] == i)])
+            for i in range(len(STREAM_LAYERS))]
+
+
 def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 4,
                   weight_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """JAX-layout MLP tree (weights [in, out], e.g. ``NeRFMLP.to_tree()``) ->
     the kernel's weight dict: the entries of ``nerf_tpu``'s ``repack_params``
-    plus ``wbuf``/``bbuf``, the flat buffers the CUDA kernels read, and
-    ``wpack``, the forward kernel's weight stream (``pack_weight_stream``)."""
+    plus ``wbuf``/``bbuf``, the flat buffers the CUDA kernels read,
+    ``wpack``, the forward kernel's weight stream (``pack_weight_stream``),
+    and ``wpack_bwd``, the backward chain's (``pack_bwd_stream``)."""
     d = 3
     perm_x = torch.as_tensor(_emb_perm(d, xyz_freqs))
     perm_d = torch.as_tensor(_emb_perm(d, dir_freqs))
@@ -167,6 +206,7 @@ def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 
         kp[f"b{i}"] = bias(pl_[i]["b"])
     kp["wbuf"], kp["bbuf"] = _pack_kernel_buffers(kp)
     kp["wpack"] = pack_weight_stream(kp["wbuf"])
+    kp["wpack_bwd"] = pack_bwd_stream(kp["wbuf"])
     return kp
 
 
@@ -253,7 +293,8 @@ fused_nerf_eval.launches = 0
 def fused_nerf_eval_wmma(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
                          dirs: torch.Tensor) -> torch.Tensor:
     """The previous forward kernel (nvcuda::wmma, ``csrc/fused_mlp.cuh``; the
-    backward still recomputes its forward with it), CUDA tensors only. No
+    wmma backward, ``fused_nerf_bwd_wmma``, recomputes its forward with it),
+    CUDA tensors only. No
     path of the port calls it: it is the yardstick that the GPU tests and
     ``chip_smoke.py`` hold ``fused_nerf_eval`` against."""
     P = _check_launch(kp, pts, dirs)

@@ -3,7 +3,8 @@ with one part of the kernel taken out or changed, built and timed on the GPU.
 
     python -m nerf_tpu_torch.tools.fused_variants [--points 1572864] [--reps 10]
 
-Each variant is the kernel's source with a few lines replaced (``VARIANTS``):
+Each variant is the kernel's source (``csrc/fused_mlp_wgmma.cuh``, which
+``csrc/fused_mlp.cu`` includes) with a few lines replaced (``VARIANTS``):
   kernel       the kernel as it is;
   no_copy      the producer marks each chunk ready without copying it, so the
                products read stale weights: the cost of the L2 weight stream;
@@ -31,7 +32,8 @@ from typing import Dict, List, Tuple
 
 from ..ops import build
 
-SOURCE = build.CSRC / "fused_mlp.cu"
+SOURCE = build.CSRC / "fused_mlp_wgmma.cuh"  # the kernel; fused_mlp.cu includes it
+MAIN = build.CSRC / "fused_mlp.cu"
 OUT_DIR = build.BUILD_DIR / "variants"
 
 _EPILOGUES = """        if (l < 8) {
@@ -52,7 +54,7 @@ VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     "kernel": [],
     "no_copy": [(_COPY, "      mbar_arrive(&full[s]);")],
     "no_epilogue": [(_EPILOGUES, ""),
-                    ("wgmma_bf16<N>(d, da, db, ch + ks > 0);", "wgmma_bf16<N>(d, da, db, 1);")],
+                    ("wgmma_bf16<N>(d, da, db, ACC || ch + ks > 0);", "wgmma_bf16<N>(d, da, db, 1);")],
     "no_turns": [(_TURN_WAIT, ""), (_TURN_PASS, ""),
                  ("    if (wg == 1) named_arrive(3, 256);  // warpgroup 0 takes the first turn\n",
                   "")],
@@ -75,13 +77,18 @@ def variant_source(name: str, source: str) -> str:
 
 
 def _build_all(names) -> Dict[str, Path]:
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    """Each variant's header beside a copy of fused_mlp.cu in a directory of
+    its own (a quoted include looks there first), built into one library."""
     src = SOURCE.read_text()
     procs = {}
     for name in names:
-        cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
-        cu.write_text(variant_source(name, src))
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so), str(cu)]
+        d = OUT_DIR / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / SOURCE.name).write_text(variant_source(name, src))
+        (d / MAIN.name).write_text(MAIN.read_text())
+        so = d / f"{name}.so"
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o", str(so),
+               str(d / MAIN.name)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
     built = {}

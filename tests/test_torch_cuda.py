@@ -19,10 +19,13 @@ Tolerances (as chip_smoke.py states them):
 - integrate, float32: atol 2e-5 (sums of up to 192 terms in another order);
 - a rendered image: PSNR >= 40 dB against the plain path;
 - fused backward (B2), bf16: every gradient leaf, dpts and ddirs within
-  1e-2 in relative norm of the plain version, and of the plain backward run
+  1e-2 in relative norm of the plain version, of the plain backward run
   on the kernel's own recomputed forward (each layer's gradient is rounded
   to bf16, 2^-9 relative, before its products; random points and upstream
-  gradients spread the gradient over every point);
+  gradients spread the gradient over every point) and of the wmma
+  backward; its recomputed forward, two launches, its mask bits and a
+  prefix's input gradients inside a larger launch: exact; one weight-gradient
+  product against torch.matmul in float32: within 2^-14 sum |x g|;
 - hash-table row gather (B4): exact; its scatter-add: per element within
   ``hash_gather.scatter_add_tolerance`` of the plain version (two float32
   sums of the same terms in other orders, each rounded once to bf16; the
@@ -275,6 +278,95 @@ def test_fused_backward_matches_plain(lego, cuda, n):
     for k in fused_mlp_bwd._GRAD_KEYS:
         assert _rel_norm(kgrads[k], own[0][k]) <= 1e-2, k
     assert _rel_norm(dpts, own[1]) <= 1e-2 and _rel_norm(ddirs, own[2]) <= 1e-2
+
+
+# ragged 64- and 128-point tiles, one round of the persistent grid and a
+# ragged end, and the lego step's fine batch
+BWD_SIZES = [1, 63, 64, 127, 128, 129, 65553, 196608]
+
+
+def _bwd_inputs(lego, cuda, n, seed=0):
+    kp = {k: v.to(cuda) for k, v in fused_mlp.repack_params(lego["fine"]).items()}
+    pts, d = _points(n, n + seed, cuda)
+    g = torch.from_numpy(np.random.default_rng(n + seed).normal(size=(n, 4))
+                         .astype(np.float32)).to(cuda)
+    return kp, pts, d, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BWD_SIZES)
+def test_wgmma_backward_matches_plain_on_its_stash(lego, cuda, n):
+    """The redesigned backward against the plain backward run on its own
+    stash (the same bf16 activations and masks): every leaf, dpts and ddirs
+    within 1e-2 in relative norm; its recomputed raw is launch_fused_nerf's
+    output bit for bit (the same kernel code); its mask bits are those of its
+    stash."""
+    kp, pts, d, g = _bwd_inputs(lego, cuda, n)
+    out = fused_mlp_bwd.launch_full(kp, pts, d, g)
+    raw = fused_mlp.fused_nerf_eval(kp, pts, d)
+    acts = fused_mlp_bwd.stash_activations(kp, out["stash"], pts, d)
+    own = fused_mlp_bwd.backward_from_activations(kp, acts, g)
+    torch.cuda.synchronize()
+    assert torch.equal(out["raw"], raw)
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        assert _rel_norm(out["kgrads"][k], own[0][k]) <= 1e-2, k
+    assert out["dpts"].shape == (n, 3) and out["ddirs"].shape == (n, 3)
+    assert _rel_norm(out["dpts"], own[1]) <= 1e-2 and _rel_norm(out["ddirs"], own[2]) <= 1e-2
+    m = out["masks"].shape[0] * 64
+    padded = fused_mlp_bwd.stash_activations(
+        kp, fused_mlp_bwd.unpack_slabs(out["stash_slabs"], m), torch.zeros((m, 3), device=cuda),
+        torch.zeros((m, 3), device=cuda))
+    assert torch.equal(fused_mlp_bwd.mask_bits(padded), out["masks"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 65553])
+def test_wgmma_backward_matches_the_wmma_backward(lego, cuda, n):
+    """The redesigned backward against the wmma one: every leaf, dpts and
+    ddirs within 1e-2 in relative norm (the two forwards sum in other orders,
+    so a ReLU mask or a bf16 rounding can flip between them)."""
+    kp, pts, d, g = _bwd_inputs(lego, cuda, n, 1)
+    got = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    want = fused_mlp_bwd.fused_nerf_bwd_wmma(kp, pts, d, g)
+    torch.cuda.synchronize()
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        assert _rel_norm(got[0][k], want["kgrads"][k]) <= 1e-2, k
+    assert _rel_norm(got[1], want["dpts"]) <= 1e-2 and _rel_norm(got[2], want["ddirs"]) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_wgmma_backward_is_deterministic_and_rowwise(lego, cuda):
+    """Two launches give the same bits (the weight gradients sum their
+    ranges in a fixed order); the dpts and ddirs of a prefix launched alone
+    are the same rows of a larger launch (a point's chain does not depend
+    on its tile or its neighbours)."""
+    kp, pts, d, g = _bwd_inputs(lego, cuda, 84525, 2)
+    a = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    b = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    torch.cuda.synchronize()
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        assert torch.equal(a[0][k], b[0][k]), k
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    for n in (1, 63, 64, 127, 128, 129, 65553):
+        part = fused_mlp_bwd.fused_nerf_bwd(kp, pts[:n].contiguous(), d[:n].contiguous(),
+                                            g[:n].contiguous())
+        assert torch.equal(part[1], a[1][:n]) and torch.equal(part[2], a[2][:n]), n
+
+
+@pytest.mark.cuda
+def test_wgrad_product_matches_matmul(cuda):
+    """One 64 x 256 weight-gradient product over 64 points through the dW
+    kernel's slab layout, MN-major descriptors and wgmma against
+    torch.matmul in float32: float32 sums of 64 terms in any order lie within
+    64 * 2^-24 * sum |x g| of each other (2^-14 of it leaves 4x)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    got = fused_mlp_bwd.wgrad_product(x, g)
+    want = x.float().T @ g.float()
+    scale = x.float().abs().T @ g.float().abs()
+    assert bool(((got - want).abs() <= 2.0 ** -14 * scale).all())
 
 
 @pytest.mark.cuda
