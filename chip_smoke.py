@@ -10,7 +10,8 @@ Phases, each printed with its elapsed seconds:
      wgmma kernels must not spill);
   3. each kernel against its plain PyTorch version on random inputs (the
      fused MLP on 65,536 points; integrate with and without ERT, relu and
-     softplus, S = 64 and 192); the fused MLP's wgmma path: one layer's
+     softplus, S = 64 and 192 at N = 8192 and 1024, also against the
+     previous (warp-round) integrate kernel); the fused MLP's wgmma path: one layer's
      product against torch.matmul, 84,525 random points (5 rounds of the
      persistent grid and a ragged tile) against the plain version and the
      wmma forward, and every ragged prefix (1, 63, 64, 127, 128, 129,
@@ -30,6 +31,9 @@ Phases, each printed with its elapsed seconds:
      the fused MLP also on the first tile's coarse pass, beside the
      wmma forward (timed in turns with it) and a chain of bf16 torch.matmul
      calls with float32 epilogues (a yardstick, printed on its own line);
+     integrate on the first tile's fine and coarse passes timed in turns
+     with the previous kernel (new, old, old, new; CUDA graphs of launches),
+     which it must beat on the fine pass;
   6. the warm-up pose rendered through the plain versions; PSNR >= 40 dB;
   7. train: the committed epoch-49 lego state (params, Adam's moments and
      counts) copied to a temp directory and resumed through the trainer's
@@ -74,11 +78,19 @@ Phases, each printed with its elapsed seconds:
      the kernels against the plain versions;
  14. times: a window of warm hash-grid train steps, and the gather and the
      scatter-add on that step's fine batch (3,145,728 rows) beside their
-     bounds, their plain versions and one PyTorch call each.
+     bounds, their plain versions and one PyTorch call each; the
+     scatter-add timed in turns with the previous (atomic) kernel, which it
+     must beat, its three launches alone and its design's byte floor;
+     integrate on the hash-grid serving tiles and the train step's batches
+     (N = 1024, S = 64 and 192) in turns with the previous kernel, and the
+     launches x (time - bound) of integrate per request and per step.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
-encoder indexes random points.
+encoder indexes random points, and the scatter-add, against its plain
+version and the previous kernel, at 3,145,728 rows of every index mix of
+tools/scatter_variants.py (all one row; runs of 31, 32, 33 and 1,000 equal
+indices across warp edges; sorted; uniform) in both layouts.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}. Any failure exits non-zero before either.
 """
@@ -120,7 +132,13 @@ PEAK_BYTES = 3.35e12
 #   err of that float64 plain version over the same inputs. (A fixed 5e-2,
 #   set from 65,536 random points, held there but not on the path's tiles.)
 # - integrate (float32): atol 2e-5 on rgb/depth/acc/weights, as
-#   tests/test_integrate_kernel.py (sums of up to 192 terms in another order).
+#   tests/test_integrate_kernel.py (sums of up to 192 terms in another order),
+#   against the plain version and the previous kernel; with ERT, a weight is
+#   exactly 0 wherever the plain version's transmittance T is below the
+#   threshold, outside the band where the two float32 sums of log T (S terms
+#   in other orders) may put T on either side of it: |T - ert| <= ert
+#   (e^m - 1), m = S 2^-23 |log ert| (integrate.past_the_cut; 1e-4 of ert at
+#   S = 192). The samples in that band and the side each fell on are printed.
 # - whole frame, kernels against plain versions: PSNR >= 40 dB.
 # - fused backward (B2, bf16), on the train path's own coarse and fine
 #   inputs, for every gradient leaf, dpts and ddirs:
@@ -158,8 +176,9 @@ PEAK_BYTES = 3.35e12
 #   of the plain version (index_add_ into float32, rounded once to bf16):
 #   two float32 sums of the same n terms in other orders lie within
 #   2.01 n 2^-24 S of each other (S the terms' summed magnitudes), and each
-#   rounds once to bf16 (2^-8). The kernel's float32 atomics add in an order
-#   that changes from run to run, so its last bits do too.
+#   rounds once to bf16 (2^-8). The kernel's float32 reductions add in an
+#   order that changes from run to run, so its last bits do too. The same
+#   bound holds it against the previous (atomic) kernel's result.
 # - one hash-grid train step, kernels against plain versions: loss within
 #   1e-4 relative; every gradient within max(1e-2, 2x its distance between
 #   the plain path and the plain path with float32 MLP weights) in relative
@@ -301,19 +320,76 @@ def check_fused_max(errs):
 
 
 def integrate_errors(label, raw, z, d, ert, act):
-    """Hold integrate against integrate_plain on one input; returns max abs err."""
+    """Hold integrate against integrate_plain and the previous kernel on one
+    input, with exact zeros past ERT's cut; returns max abs err."""
     import torch
     from nerf_tpu_torch.ops import integrate as tint
 
+    keys = ("rgb_map", "depth_map", "acc_map", "weights")
     got = tint.integrate(raw, z, d, ert, True, act)
     want = tint.integrate_plain(raw, z, d, ert, True, act)
+    old = tint.integrate_warp(raw, z, d, ert, True, act)
+    trans = tint.plain_transmittance(raw, z, d, act)
     torch.cuda.synchronize()
-    err = max(float((got[k] - want[k]).abs().max())
-              for k in ("rgb_map", "depth_map", "acc_map", "weights"))
+    err = max(float((got[k] - want[k]).abs().max()) for k in keys)
+    err_old = max(float((got[k] - old[k]).abs().max()) for k in keys)
+    cut = ""
+    if ert > 0:
+        beyond, near = tint.past_the_cut(trans, ert)
+        nonzero = int((got["weights"][beyond] != 0).sum())
+        flips = int(((got["weights"] != 0) != (trans >= ert))[near].sum())
+        cut = (f"; {int(beyond.sum())} weights past ERT's cut, {nonzero} of them not 0; "
+               f"{int(near.sum())} within rounding of it, {flips} of those on the other side")
+        check(nonzero == 0, f"integrate: weights past ERT's cut are not 0 on {label}")
     log(f"integrate {label} N={z.shape[0]} S={z.shape[1]} ert={ert} {act}: "
-        f"max abs err {err:.3g} (tol {INTEGRATE_ATOL})")
-    check(err <= INTEGRATE_ATOL, f"integrate disagrees with integrate_plain on {label}")
+        f"max abs err {err:.3g} (tol {INTEGRATE_ATOL}), against the previous kernel "
+        f"{err_old:.3g}{cut}")
+    check(err <= INTEGRATE_ATOL and err_old <= INTEGRATE_ATOL,
+          f"integrate disagrees with integrate_plain or the previous kernel on {label}")
     return err
+
+
+def integrate_bound(raw, z, d, ert, act):
+    """(bound ms, "bytes" or "operations", share of samples read) of
+    integrate on one input: samples up to ERT's cut are read (raw 16 B, z
+    4 B, ~40 flops), every weight and the per-ray values are written."""
+    from nerf_tpu_torch.render.composite import composite
+
+    nr, s = z.shape
+    trans = composite(raw, z, d, white_bkgd=False, sigma_activation=act)["transmittance"]
+    read = int((trans >= ert).sum())
+    nbytes = read * 20 + nr * s * 4 + nr * (12 + 12 + 4 + 4)
+    flops = 40.0 * read
+    bound = max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3
+    return (bound, "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32_FLOPS else "operations",
+            read / (nr * s))
+
+
+def integrate_turns(label, raw, z, d, ert, act):
+    """integrate and the previous kernel on one input, timed in turns (new,
+    old, old, new), each time a CUDA graph of launches (device time only:
+    the host's launch time exceeds the kernel's at N = 1024). Returns
+    {label, n, s, ms, old_ms, bound_ms, bound_by}."""
+    import torch
+    from nerf_tpu_torch.ops import integrate as tint
+    from nerf_tpu_torch.tools.variants import graph_ms
+
+    nr, s = z.shape
+    outs = [torch.empty(shape, device=raw.device) for shape in ((nr, 3), (nr,), (nr,), (nr, s))]
+    args = [t.data_ptr() for t in (raw, z, d, *outs)] + [nr, s, ert, int(act == "softplus")]
+    lib = tint._lib()
+    calls = {"new": lambda: lib.launch_integrate(*args, torch.cuda.current_stream().cuda_stream),
+             "old": lambda: lib.launch_integrate_warp(*args,
+                                                      torch.cuda.current_stream().cuda_stream)}
+    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_integrate failed")
+    turns = [graph_ms(calls[k], reps=100) for k in ("new", "old", "old", "new")]
+    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    bound, bound_by, share = integrate_bound(raw, z, d, ert, act)
+    log(f"integrate {label}, N={nr} S={s} ert={ert} {act}: kernel {ms:.4f} ms, previous kernel "
+        f"{old_ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}), bound {bound:.4f} ms "
+        f"({bound_by}; {share:.3f} of the samples before the cut), {bound / ms:.3f} of it")
+    return {"label": label, "n": nr, "s": s, "ms": ms, "old_ms": old_ms, "bound_ms": bound,
+            "bound_by": bound_by}
 
 
 def random_phase(kp, dev):
@@ -327,11 +403,11 @@ def random_phase(kp, dev):
     fused_errs = [fused_errors("random", kp, pts, d / torch.linalg.norm(d, dim=-1, keepdim=True))]
 
     integrate_err = 0.0
-    for s in (64, 192):
-        raw = torch.randn((8192, s, 4), generator=gen, device=dev)
+    for n, s in ((8192, 64), (8192, 192), (1024, 64), (1024, 192)):
+        raw = torch.randn((n, s, 4), generator=gen, device=dev)
         raw[..., 3] *= 20.0
-        z = torch.sort(torch.rand((8192, s), generator=gen, device=dev) * 4.0 + 2.0, -1).values
-        d = torch.randn((8192, 3), generator=gen, device=dev)
+        z = torch.sort(torch.rand((n, s), generator=gen, device=dev) * 4.0 + 2.0, -1).values
+        d = torch.randn((n, 3), generator=gen, device=dev)
         d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
         for ert in (0.0, 0.01):
             for act in ("relu", "softplus"):
@@ -494,13 +570,12 @@ def path_phase(service, random_errs):
     inputs and shapes, and their times on the first tile's fine pass."""
     import torch
     from nerf_tpu_torch.ops import fused_mlp, integrate as tint
-    from nerf_tpu_torch.render.composite import composite
     from nerf_tpu_torch.tools.fused_accuracy import path_inputs
 
     dev, opts, kp = service.device, service.opts, service.params
     fused_errs, integrate_err = random_errs
     ert, act = opts.ert_threshold if opts.enable_ert else 0.0, opts.sigma_activation
-    timed = coarse = None
+    timed = coarse = coarse_int = None
     for label, model, pts, dirs, z, d in path_inputs(service, THETA0, PHI, RADIUS):
         fused_errs.append(fused_errors(label, kp[model], pts, dirs))
         if z is None:
@@ -511,6 +586,7 @@ def path_phase(service, random_errs):
             timed = (pts, dirs, raw, z, d)
         if coarse is None and model == "coarse":
             coarse = (kp["coarse"], pts, dirs)
+            coarse_int = (raw, z, d)
     fused_err = check_fused_max(fused_errs)
 
     pts, dirs, raw, z, d = timed
@@ -555,33 +631,20 @@ def path_phase(service, random_errs):
                         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
                         else "bytes", "library_ms": None}]
 
-    nr, s = z.shape
-    outs = [torch.empty(shape, device=dev) for shape in ((nr, 3), (nr,), (nr,), (nr, s))]
-    lib = tint._lib()
-    args = [t.data_ptr() for t in (raw, z, d, *outs)]
-    act_id = int(act == "softplus")
-    check(lib.launch_integrate(*args, nr, s, ert, act_id, stream) == 0, "launch_integrate failed")
-    ms = time_ms(lambda: lib.launch_integrate(*args, nr, s, ert, act_id, stream), reps=200)
+    fine = integrate_turns("lego tile fine", raw, z, d, ert, act)
+    b3_rows = [integrate_turns("lego tile coarse", *coarse_int, ert, act), fine]
     wrapper_ms = time_ms(lambda: tint.integrate(raw, z, d, ert, True, act), reps=50)
     plain_ms = time_ms(lambda: tint.integrate_plain(raw, z, d, ert, True, act), reps=20)
-    # what these inputs need: samples up to ERT's cut are read (raw 16 B,
-    # z 4 B), every weight and the per-ray values are written
-    trans = composite(raw, z, d, white_bkgd=False, sigma_activation=act)["transmittance"]
-    read = int((trans >= ert).sum())
-    nbytes = read * 20 + nr * s * 4 + nr * (12 + 12 + 4 + 4)
-    flops = 40.0 * read
-    bound = max(nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS) * 1e3
-    log(f"integrate first tile fine, N={nr} S={s} ert={ert}: kernel {ms:.4f} ms, wrapper "
-        f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({read / (nr * s):.3f} of the samples before the cut)")
+    log(f"integrate first tile fine: wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    check(fine["ms"] < fine["old_ms"],
+          "integrate is not faster than the previous kernel on the lego tile's fine pass")
     kernels.append({"name": "integrate", "route": "cuda",
                     "source": "nerf_tpu_torch/csrc/integrate.cu",
                     "replaces": "nerf_tpu/ops/integrate.py:24",
-                    "max_abs_err": integrate_err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound,
-                    "bound_by": "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32_FLOPS
-                    else "operations", "library_ms": None})
-    return kernels
+                    "max_abs_err": integrate_err, "ms": fine["ms"], "plain_ms": plain_ms,
+                    "bound_ms": fine["bound_ms"], "bound_by": fine["bound_by"],
+                    "library_ms": None})
+    return kernels, b3_rows
 
 
 def plain_phase(service):
@@ -996,22 +1059,27 @@ def _pattern_rows(dev, layout, n_rows_wanted, gen):
 
 
 def scatter_errors(label, idx, cot, n_rows):
-    """Hold scatter_add_rows against its plain version; returns max abs err."""
+    """Hold scatter_add_rows against its plain version and the previous
+    (atomic) kernel; returns max abs err against the plain version."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
     got = hash_gather.scatter_add_rows(idx, cot, n_rows)
-    want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
-    tol = hash_gather.scatter_add_tolerance(idx, cot, want)
-    torch.cuda.synchronize()
-    err = (got.double() - want.double()).abs()
-    worst = float((err / tol.clamp_min(1e-30)).max())
+    worst, errs = [], []
+    for ref in (hash_gather.scatter_add_rows_plain(idx, cot, n_rows),
+                hash_gather.scatter_add_rows_atomic(idx, cot, n_rows)):
+        tol = hash_gather.scatter_add_tolerance(idx, cot, ref)
+        torch.cuda.synchronize()
+        err = (got.double() - ref.double()).abs()
+        worst.append(float((err / tol.clamp_min(1e-30)).max()))
+        errs.append(err)
     log(f"scatter_add_rows {label}: {idx.shape[0]} rows of {cot.shape[1]} {cot.dtype} into "
-        f"{n_rows}: max abs err {float(err.max()):.4g}, {int((err > 0).sum())} elements differ, "
-        f"worst err / tolerance {worst:.3g} (float32 atomics: the order varies from run to run)")
-    check(got.dtype == cot.dtype and worst <= 1.0,
-          f"scatter_add_rows disagrees with scatter_add_rows_plain on {label}")
-    return float(err.max())
+        f"{n_rows}: max abs err {float(errs[0].max()):.4g}, {int((errs[0] > 0).sum())} elements "
+        f"differ, worst err / tolerance {worst[0]:.3g}, against the previous kernel "
+        f"{worst[1]:.3g} (float32 reductions: the order varies from run to run)")
+    check(got.dtype == cot.dtype and max(worst) <= 1.0,
+          f"scatter_add_rows disagrees with its plain version or the previous kernel on {label}")
+    return float(errs[0].max())
 
 
 def gather_errors(label, table, idx):
@@ -1031,8 +1099,10 @@ def gather_errors(label, table, idx):
 
 def hash_random_phase(dev):
     """B4 and its scatter-add on random tables of the config's sizes, at a
-    train step's fine-batch row count with the encoder's index pattern."""
+    train step's fine-batch row count with the encoder's index pattern; the
+    scatter-add also on every index mix of tools/scatter_variants.py."""
     import torch
+    from nerf_tpu_torch.tools import scatter_variants
 
     gen = torch.Generator(device=dev).manual_seed(4)
     errs = {"gather": 0.0, "scatter": 0.0}
@@ -1047,6 +1117,10 @@ def hash_random_phase(dev):
         counts = torch.bincount(idx.long(), minlength=table.shape[0])
         log(f"{layout}: {int((counts > 0).sum())} distinct rows of {idx.shape[0]}, the most "
             f"used {int(counts.max())} times")
+        for mix in scatter_variants.MIXES:
+            midx = scatter_variants.index_mix(mix, HASH_ROWS, table.shape[0], gen)
+            errs["scatter"] = max(errs["scatter"], scatter_errors(f"{mix} {layout}", midx, cot,
+                                                                  table.shape[0]))
     return errs
 
 
@@ -1110,14 +1184,19 @@ def hash_path_phase(service):
     for label, (args, kw) in zip(names, seen_i):
         err = max(err, integrate_errors(f"hash {label}", *args[:3], kw["ert_threshold"],
                                         kw["sigma_activation"]))
-    return err
+    b3_rows = [integrate_turns(f"hash-grid serving {label}", *args[:3], kw["ert_threshold"],
+                               kw["sigma_activation"])
+               for label, (args, kw) in zip(names[:2], seen_i[:2])]
+    return err, b3_rows
 
 
 def hash_grads_phase(cfg, state, grid, data, dev):
     """The scatter-add on one step's own fine inputs, and the whole step,
-    kernels against plain. Returns the fine batch's gather and scatter inputs."""
+    kernels against plain, and integrate on the step's batches in turns with
+    the previous kernel. Returns the scatter-add's error, the fine batch's
+    gather and scatter inputs and the integrate times."""
     import torch
-    from nerf_tpu_torch.ops import hash_gather
+    from nerf_tpu_torch.ops import hash_gather, integrate as tint
     from nerf_tpu_torch.render.renderer import RenderOptions
     from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch
 
@@ -1127,9 +1206,14 @@ def hash_grads_phase(cfg, state, grid, data, dev):
     ro, rd, tgt = sample_ray_batch(gen, *data, int(cfg.task_arg.N_rays))
     rng = gen.get_state()
     with _spy(hash_gather, "gather_rows") as seen_g, \
-            _spy(hash_gather, "scatter_add_rows") as seen_s:
+            _spy(hash_gather, "scatter_add_rows") as seen_s, _spy(tint, "integrate") as seen_i:
         lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen)
     seen_g, seen_s = [a for a, _ in seen_g], [a for a, _ in seen_s]
+    check(len(seen_i) == 2, f"{len(seen_i)} integrates in one step, expected 2")
+    b3_rows = [integrate_turns(f"train batch {lbl}", *args[:3], kw["ert_threshold"],
+                               kw["sigma_activation"])
+               for lbl, (args, kw) in zip(("coarse", "fine"),
+                                          sorted(seen_i, key=lambda c: c[0][1].shape[1]))]
     step = {}
     for name, o in (("plain", plain), ("again", plain),
                     ("plain32", dataclasses.replace(plain, compute_dtype="float32"))):
@@ -1161,7 +1245,7 @@ def hash_grads_phase(cfg, state, grid, data, dev):
     check(math.isfinite(float(lk)) and loss_rel <= HASH_STEP_LOSS_REL,
           "hash train step loss disagrees")
     check(r <= 1.0, "hash train step gradients disagree")
-    return scatter_err, fine_g, fine_s
+    return scatter_err, fine_g, fine_s, b3_rows
 
 
 def hash_times_phase(cfg, state, grid, data, dev, fine_g, fine_s):
@@ -1227,21 +1311,54 @@ def hash_times_phase(cfg, state, grid, data, dev, fine_g, fine_s):
     acc = torch.empty((n_rows, width), device=dev)
     res = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
     sargs = (sidx.data_ptr(), cot.data_ptr(), acc.data_ptr(), res.data_ptr(), n_rows, n, width,
-             int(cot.dtype == torch.bfloat16), stream)
-    check(lib.launch_scatter_add_rows(*sargs) == 0, "launch_scatter_add_rows failed")
-    sms = time_ms(lambda: lib.launch_scatter_add_rows(*sargs), reps=50)
+             int(cot.dtype == torch.bfloat16))
+    calls = {"new": lambda: lib.launch_scatter_add_rows(*sargs, stream),
+             "old": lambda: lib.launch_scatter_add_rows_atomic(*sargs, stream)}
+    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_scatter_add_rows failed")
+    turns = [time_ms(calls[k], reps=50) for k in ("new", "old", "old", "new")]
+    sms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    parts = [time_ms(lambda: lib.launch_scatter_add_rows_part(*sargs, i, stream), reps=50)
+             for i in range(3)]
     splain_ms = time_ms(lambda: hash_gather.scatter_add_rows_plain(sidx, cot, n_rows), reps=20)
     lib_buf = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
     slib_ms = time_ms(lambda: lib_buf.zero_().index_add_(0, sidx, cot), reps=20)
     # indices and cotangent rows read once, the gradient table written once
     snbytes = 4 * n + n * width * cot.element_size() + n_rows * width * cot.element_size()
     sbound = snbytes / PEAK_BYTES * 1e3
-    log(f"scatter_add_rows fine batch, {n} rows of {width} {cot.dtype} into {n_rows}: kernel "
-        f"{sms:.4f} ms (memset, atomics, rounding), plain {splain_ms:.4f} ms, index_add_ in "
-        f"bf16 {slib_ms:.4f} ms, bound {sbound:.4f} ms")
+    # this design's floor: also the float32 buffer zeroed, then read by the rounding
+    floor = (snbytes + 2 * n_rows * width * 4) / PEAK_BYTES * 1e3
+    runs = int(hash_gather.warp_runs(sidx)[2][:n].sum())
+    log(f"scatter_add_rows fine batch, {n} rows of {width} {cot.dtype} into {n_rows} "
+        f"({runs} runs in warps of 32 rows): kernel {sms:.4f} ms, previous (atomic) kernel "
+        f"{old_ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}); its launches alone: "
+        f"memset {parts[0]:.4f}, accumulation {parts[1]:.4f}, rounding {parts[2]:.4f} ms; plain "
+        f"{splain_ms:.4f} ms, index_add_ in bf16 {slib_ms:.4f} ms, bound {sbound:.4f} ms "
+        f"({sbound / sms:.3f} of it), this design's byte floor {floor:.4f} ms")
+    check(sms < old_ms, "the scatter-add is not faster than the previous (atomic) kernel")
     scatter = {"ms": sms, "plain_ms": splain_ms, "bound_ms": sbound, "bound_by": "bytes",
                "library_ms": slib_ms}
     return gather, scatter, step_ms
+
+
+def b3_summary(rows):
+    """integrate at every shape it runs at, and its launches x (time - bound)
+    per request and per step. A lego request composites 5 tiles (4 of 8192
+    rays and one of 7232), coarse and fine: 5 x each first-tile pass, a
+    little above the truth; a hash-grid request 40 tiles of 1024 rays,
+    coarse and fine; a train step of either model one batch of 1024 rays,
+    coarse and fine (timed on the hash-grid step's)."""
+    for r in rows:
+        log(f"B3 {r['label']:<30} N={r['n']:>5} S={r['s']:>3}: {r['ms']:.4f} ms (previous "
+            f"{r['old_ms']:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['ms']:.3f} of it")
+    lost = {r["label"]: (r["ms"] - r["bound_ms"], r["old_ms"] - r["bound_ms"]) for r in rows}
+    for what, counts in (("lego request", {"lego tile coarse": 5, "lego tile fine": 5}),
+                         ("hash-grid request", {"hash-grid serving first tile coarse": 40,
+                                                "hash-grid serving first tile fine": 40}),
+                         ("train step", {"train batch coarse": 1, "train batch fine": 1})):
+        new = sum(c * lost[k][0] for k, c in counts.items())
+        old = sum(c * lost[k][1] for k, c in counts.items())
+        log(f"B3 launches x (time - bound) per {what}: {new:.4f} ms (previous kernel {old:.4f})")
 
 
 def main() -> int:
@@ -1292,7 +1409,7 @@ def main() -> int:
                         "integrate": integrate.integrate})
 
     log("phase 5: kernels against their plain versions on the serving path's inputs")
-    kernels = path_phase(service, random_errs)
+    kernels, b3_rows = path_phase(service, random_errs)
     log("phase 6: the kernel path against the plain path")
     rgb_k = plain_phase(service)
     # renders are deterministic: the served PNG is the same frame
@@ -1333,7 +1450,7 @@ def main() -> int:
         hservice, _, hserve_launches, request_ms = serve_phase(
             dev, hcfg, {k: c for k, c in _hash_counters().items()
                         if k != "hash_scatter_add_rows"}, n_timed=HASH_N_TIMED)
-    hash_int_err = hash_path_phase(hservice)
+    hash_int_err, hash_b3 = hash_path_phase(hservice)
     plain_phase(hservice)
     log("phase 13: the scatter-add and a whole hash-grid step against their plain versions")
     # noise targets at the orbit's poses: the hash model trained on the noise
@@ -1342,13 +1459,15 @@ def main() -> int:
     imgs, poses, K = _model_views(hservice)
     hdata = (torch.randint(0, 256, imgs.shape, dtype=torch.uint8, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(5)), poses, K)
-    scatter_err, fine_g, fine_s = hash_grads_phase(hcfg, hstate, hservice.grid, hdata, dev)
+    scatter_err, fine_g, fine_s, train_b3 = hash_grads_phase(hcfg, hstate, hservice.grid, hdata,
+                                                             dev)
     log("phase 14: hash-grid times")
     gather_t, scatter_t, step_ms = hash_times_phase(hcfg, hstate, hservice.grid, hdata, dev,
                                                     fine_g, fine_s)
     log(f"hash-grid model on {smi}: {step_ms:.3f} ms per train step (1024 rays), "
         f"{request_ms:.2f} ms per {SIZE}x{SIZE} request; launches on its serving path "
         f"{hserve_launches}, on its train path {hash_launches}")
+    b3_summary(b3_rows + hash_b3 + train_b3)
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], hash_int_err)
     kernels.append({"name": "hash_gather_rows", "route": "cuda",
                     "source": "nerf_tpu_torch/csrc/hash_gather.cu",

@@ -6,9 +6,14 @@ table and int32 indices: on CUDA tensors it launches the kernel of
 ``csrc/hash_gather.cu`` (the port of the Pallas ``_gather_kernel``,
 ``nerf_tpu/ops/hash_gather.py:45``), on CPU tensors it runs
 ``gather_rows_plain``. ``scatter_add_rows(idx, cot, n_rows)`` is its
-transpose, the table's gradient: the kernel accumulates in float32 with
-atomics and rounds once to the cotangent's dtype; ``scatter_add_rows_plain``
-does the same with ``index_add_`` on a float32 buffer. In the JAX package
+transpose, the table's gradient: the kernel sums runs of equal indices
+within a warp in registers, adds each run's sum into a float32 buffer with
+vector reductions and rounds once to the cotangent's dtype;
+``scatter_add_rows_plain`` does the same with ``index_add_`` on a float32
+buffer. ``scatter_add_rows_atomic`` launches the previous kernel (one
+float32 atomic per element), kept for comparison; ``warp_runs`` and
+``scatter_add_rows_runs`` repeat the kernel's runs and order of sums in
+PyTorch for the CPU tests. In the JAX package
 the hash encoder gathers with XLA, and its backward is XLA's scatter-add in
 the table's dtype (the slotpack VJP); the port's float32 accumulation is
 the difference, bounded in ``tests/test_torch_hashgrid.py``.
@@ -60,6 +65,62 @@ def scatter_add_tolerance(idx: torch.Tensor, cot: torch.Tensor, want: torch.Tens
     return tol
 
 
+def warp_runs(idx: torch.Tensor):
+    """The kernel's runs: the rows of each warp (32 consecutive rows, the
+    last warp padded with index -1) split where the index changes. Returns
+    (lane [N'], start [N'], last [N']) for the N' = 32 ceil(N / 32) padded
+    rows: each row's lane, the lane its run starts at, whether it ends it."""
+    n = idx.shape[0]
+    pad = torch.full((-n % 32,), -1, dtype=idx.dtype, device=idx.device)
+    r = torch.cat([idx, pad]).reshape(-1, 32)
+    lane = torch.arange(32, device=idx.device).expand_as(r)
+    head = torch.ones_like(r, dtype=torch.bool)
+    head[:, 1:] = r[:, 1:] != r[:, :-1]
+    start = torch.cummax(torch.where(head, lane, 0), dim=1).values
+    last = torch.ones_like(head)
+    last[:, :-1] = head[:, 1:]
+    return lane.reshape(-1), start.reshape(-1), last.reshape(-1)
+
+
+def lanes_per_row(width: int) -> int:
+    """How many lanes of the kernel's warp share a row: 4 for widths 16
+    divides, 2 for 8, else 1 (each lane holding 4, 2 or 1 of its floats)."""
+    return 4 if width % 16 == 0 else 2 if width % 8 == 0 else 1
+
+
+def scatter_add_rows_runs(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``scatter_add_rows``'s result summed as its kernel sums (for the
+    tests): each warp's 32 rows in P = ``lanes_per_row`` groups of 32 / P;
+    in each group a segmented inclusive scan in float32 (steps of 1, 2, 4,
+    ... rows, a row adding only from its own run), plus the run's sum at the
+    group before's last row where the run began there; each run's sum then
+    added at its index, rounded once to cot's dtype."""
+    lane, start, last = warp_runs(idx)
+    n, width = cot.shape
+    p = lanes_per_row(width)
+    g_rows = 32 // p
+    v = torch.zeros((lane.shape[0], width), dtype=torch.float32, device=cot.device)
+    v[:n] = cot.float()
+    v = v.reshape(-1, 32, width)
+    lane, start = lane.reshape(-1, 32), start.reshape(-1, 32)
+    for g in range(p):
+        rows = slice(g * g_rows, (g + 1) * g_rows)
+        vg, rho, st = v[:, rows], lane[:, rows], start[:, rows]
+        off = 1
+        while off < g_rows:
+            take = ((rho - off >= st) & (rho - g * g_rows >= off))[..., None]
+            vg = vg + torch.where(take, torch.nn.functional.pad(vg, (0, 0, off, 0))[:, :g_rows],
+                                  0.0)
+            off *= 2
+        if g > 0:
+            vg = vg + torch.where((st < g * g_rows)[..., None], v[:, g * g_rows - 1][:, None], 0.0)
+        v = torch.cat([v[:, :g * g_rows], vg, v[:, (g + 1) * g_rows:]], dim=1)
+    keep = last[:n]
+    acc = torch.zeros((n_rows, width), dtype=torch.float32, device=cot.device)
+    acc.index_add_(0, idx[keep].long(), v.reshape(-1, width)[:n][keep])
+    return acc.to(cot.dtype)
+
+
 def _check(idx: torch.Tensor, rows: torch.Tensor, what: str) -> None:
     if idx.dim() != 1 or rows.dim() != 2:
         raise ValueError(f"{what}: need idx [N] and a 2D tensor, got {tuple(idx.shape)} "
@@ -96,24 +157,12 @@ gather_rows.launches = 0
 def scatter_add_rows(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch.Tensor:
     """The transpose of ``gather_rows``: grad [n_rows, W] in cot's dtype, the
     rows of cot [N, W] summed at idx [N] int32 in float32 and rounded once.
-    The CUDA kernel for CUDA tensors (float32 atomics: the order of the sums,
-    and so their last bits, change from run to run), the plain version for
-    CPU tensors."""
+    The CUDA kernel for CUDA tensors (float32 reductions: the order of the
+    sums, and so their last bits, change from run to run), the plain version
+    for CPU tensors."""
     if cot.device.type == "cpu":
         return scatter_add_rows_plain(idx, cot, n_rows)
-    _check(idx, cot, "scatter_add_rows")
-    n, width = cot.shape
-    build.check_cuda("idx", idx, torch.int32, (n,))
-    build.check_cuda("cot", cot, cot.dtype, (n, width))
-    acc = torch.empty((n_rows, width), dtype=torch.float32, device=cot.device)
-    out = acc if cot.dtype == torch.float32 else torch.empty((n_rows, width), dtype=cot.dtype,
-                                                             device=cot.device)
-    rc = _lib().launch_scatter_add_rows(idx.data_ptr(), cot.data_ptr(), acc.data_ptr(),
-                                        out.data_ptr(), n_rows, n, width,
-                                        int(cot.dtype == torch.bfloat16),
-                                        torch.cuda.current_stream(cot.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
+    out = _scatter(_lib().launch_scatter_add_rows, idx, cot, n_rows)
     scatter_add_rows.launches += 1
     return out
 
@@ -121,14 +170,44 @@ def scatter_add_rows(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch
 scatter_add_rows.launches = 0
 
 
+def scatter_add_rows_atomic(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The previous scatter-add kernel (one float32 atomicAdd per element,
+    ``launch_scatter_add_rows_atomic``), CUDA tensors only. No path of the
+    port calls it: it is the yardstick that the GPU tests and
+    ``chip_smoke.py`` hold ``scatter_add_rows`` against."""
+    return _scatter(_lib().launch_scatter_add_rows_atomic, idx, cot, n_rows)
+
+
+def _scatter(fn, idx, cot, n_rows):
+    _check(idx, cot, "scatter_add_rows")
+    n, width = cot.shape
+    build.check_cuda("idx", idx, torch.int32, (n,))
+    build.check_cuda("cot", cot, cot.dtype, (n, width))
+    acc = torch.empty((n_rows, width), dtype=torch.float32, device=cot.device)
+    out = acc if cot.dtype == torch.float32 else torch.empty((n_rows, width), dtype=cot.dtype,
+                                                             device=cot.device)
+    rc = fn(idx.data_ptr(), cot.data_ptr(), acc.data_ptr(), out.data_ptr(), n_rows, n, width,
+            int(cot.dtype == torch.bfloat16), torch.cuda.current_stream(cot.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
+    return out
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("hash_gather")
+    return bind(build.load("hash_gather"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built ``csrc/hash_gather.cu``'s exports."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.launch_gather_rows.argtypes = [p, p, p, i64, i32, i32, p]
     lib.launch_gather_rows.restype = i32
-    lib.launch_scatter_add_rows.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
-    lib.launch_scatter_add_rows.restype = i32
+    for fn in (lib.launch_scatter_add_rows, lib.launch_scatter_add_rows_atomic):
+        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
+        fn.restype = i32
+    lib.launch_scatter_add_rows_part.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
+    lib.launch_scatter_add_rows_part.restype = i32
     return lib
 
 

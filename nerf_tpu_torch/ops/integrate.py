@@ -7,6 +7,10 @@ CPU tensors. Their transmittance is the Pallas kernel's: an exclusive sum of
 log(1 - alpha + 1e-10), each term a stable logaddexp, rather than the
 cumprod of ``render/composite.py``; both agree with it to float32 rounding.
 
+``integrate_warp`` launches the previous kernel (32 samples a round), kept for
+comparison; ``lane_transmittance`` repeats the kernel's order of sums in
+PyTorch for the CPU tests.
+
 ``composite_kernel`` is differentiable (the counterpart of ``nerf_tpu``'s
 ``_composite_pallas_diff``): its forward is ``integrate``, and its backward
 recomputes ``render/composite.py::composite`` under torch autograd, as the
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict
 
 import torch
@@ -26,13 +31,14 @@ from . import build
 
 _LOG_EPS = -23.025850929940457  # log(1e-10)
 _ACTIVATIONS = ("relu", "softplus")
+_MAX_K, _CHUNK_K = 8, 2  # csrc/integrate.cu's MAX_K and CHUNK_K
 
 
-def integrate_plain(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
-                    ert_threshold: float = 0.0, white_bkgd: bool = True,
-                    sigma_activation: str = "relu") -> Dict[str, torch.Tensor]:
-    """raw [N, S, 4], z_vals [N, S], rays_d [N, 3] -> rgb_map, depth_map,
-    acc_map, disp_map, weights. ``ert_threshold <= 0`` turns ERT off."""
+def sample_terms(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                 sigma_activation: str = "relu"):
+    """Per sample, alpha and log(1 - alpha + 1e-10) (a stable logaddexp), as
+    the kernel forms them: raw [N, S, 4], z_vals [N, S], rays_d [N, 3] ->
+    two [N, S] tensors."""
     if sigma_activation not in _ACTIVATIONS:
         raise ValueError(f"unknown sigma activation: {sigma_activation!r}")
     sigma = raw[..., 3]
@@ -43,12 +49,43 @@ def integrate_plain(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tenso
     if sigma_activation == "softplus":  # in the kernel's form
         dens = dens + torch.log(1.0 + torch.exp(-torch.abs(sigma)))
     lam = dens * dists
-    alpha = 1.0 - torch.exp(-lam)
     hi = torch.clamp_min(-lam, _LOG_EPS)
     lo = torch.clamp_max(-lam, _LOG_EPS)
-    log_1ma = hi + torch.log(1.0 + torch.exp(lo - hi))
+    return 1.0 - torch.exp(-lam), hi + torch.log(1.0 + torch.exp(lo - hi))
+
+
+def _exclusive_exp(log_1ma: torch.Tensor) -> torch.Tensor:
     excl = torch.cumsum(torch.cat([torch.zeros_like(log_1ma[:, :1]), log_1ma[:, :-1]], -1), -1)
-    trans = torch.exp(excl)
+    return torch.exp(excl)
+
+
+def plain_transmittance(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                        sigma_activation: str = "relu") -> torch.Tensor:
+    """T [N, S] as ``integrate_plain`` forms it: exp of the exclusive cumsum
+    of the log terms. Its weights are zero exactly where T < ert."""
+    return _exclusive_exp(sample_terms(raw, z_vals, rays_d, sigma_activation)[1])
+
+
+def past_the_cut(trans: torch.Tensor, ert: float):
+    """(beyond, near) [N, S] masks for a check of ERT's zeros against the
+    plain transmittance ``trans``: a kernel that sums the same S float32 log
+    terms in another order forms log T within S 2^-24 sum|terms| of it, and
+    sum|terms| = |log T| for terms <= 0, so its T may fall on the other side
+    of ert only where |T - ert| <= ert (e^m - 1), m = S 2^-23 |log ert|
+    ("near"). ``beyond``: T below ert outside that band, where every weight
+    must be exactly 0."""
+    m = trans.shape[-1] * 2.0 ** -23 * abs(math.log(ert))
+    near = (trans - ert).abs() <= ert * math.expm1(m)
+    return (trans < ert) & ~near, near
+
+
+def integrate_plain(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                    ert_threshold: float = 0.0, white_bkgd: bool = True,
+                    sigma_activation: str = "relu") -> Dict[str, torch.Tensor]:
+    """raw [N, S, 4], z_vals [N, S], rays_d [N, 3] -> rgb_map, depth_map,
+    acc_map, disp_map, weights. ``ert_threshold <= 0`` turns ERT off."""
+    alpha, log_1ma = sample_terms(raw, z_vals, rays_d, sigma_activation)
+    trans = _exclusive_exp(log_1ma)
     weights = alpha * trans
     if ert_threshold > 0:
         weights = weights * (trans >= ert_threshold).to(weights.dtype)
@@ -57,6 +94,44 @@ def integrate_plain(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tenso
                       white_bkgd)
     out["weights"] = weights
     return out
+
+
+def lane_samples(S: int, up_front: bool = True):
+    """How the kernel spreads a ray of S samples over a warp's 32 lanes:
+    (K, chunk), lane l of each chunk of 32 K samples owning its samples
+    c0 + l K .. c0 + l K + K - 1: whole rays of up to 256 samples at once,
+    longer ones (or with ``up_front=False``, the kernel's variant) in chunks
+    of 64."""
+    k = -(-S // 32) if up_front and S <= 32 * _MAX_K else _CHUNK_K
+    return k, 32 * k
+
+
+def lane_transmittance(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                       sigma_activation: str = "relu", up_front: bool = True) -> torch.Tensor:
+    """T [N, S] summed in the kernel's order (for the tests): each lane's log
+    terms serially, an inclusive warp scan of the lane sums in 5 shuffle
+    steps, the exclusive prefix from the lane before, a carry between chunks."""
+    log_1ma = sample_terms(raw, z_vals, rays_d, sigma_activation)[1]
+    n, s = log_1ma.shape
+    k, ch = lane_samples(s, up_front)
+    chunks = -(-s // ch)
+    terms = torch.nn.functional.pad(log_1ma, (0, chunks * ch - s)).reshape(n, chunks, 32, k)
+    log_t = torch.empty_like(terms)
+    carry = torch.zeros((n,), dtype=terms.dtype, device=terms.device)
+    for c in range(chunks):
+        lane_sum = terms[:, c, :, 0]
+        for j in range(1, k):
+            lane_sum = lane_sum + terms[:, c, :, j]
+        incl = lane_sum
+        for off in (1, 2, 4, 8, 16):
+            incl = incl + torch.nn.functional.pad(incl, (off, 0))[:, :32]
+        excl = torch.nn.functional.pad(incl, (1, 0))[:, :32]
+        acc = carry[:, None] + excl
+        for j in range(k):
+            log_t[:, c, :, j] = acc
+            acc = acc + terms[:, c, :, j]
+        carry = carry + incl[:, 31]
+    return torch.exp(log_t.reshape(n, chunks * ch)[:, :s])
 
 
 def integrate(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
@@ -70,6 +145,27 @@ def integrate(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     if raw.device.type == "cpu":
         return integrate_plain(raw, z_vals, rays_d, ert_threshold, white_bkgd,
                                sigma_activation)
+    out = _launch(_lib().launch_integrate, raw, z_vals, rays_d, ert_threshold, white_bkgd,
+                  sigma_activation)
+    integrate.launches += 1
+    return out
+
+
+integrate.launches = 0
+
+
+def integrate_warp(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
+                   ert_threshold: float = 0.0, white_bkgd: bool = True,
+                   sigma_activation: str = "relu") -> Dict[str, torch.Tensor]:
+    """The previous compositing kernel (32 samples a round,
+    ``launch_integrate_warp``), CUDA tensors only. No path of the port calls
+    it: it is the yardstick that the GPU tests and ``chip_smoke.py`` hold
+    ``integrate`` against."""
+    return _launch(_lib().launch_integrate_warp, raw, z_vals, rays_d, ert_threshold, white_bkgd,
+                   sigma_activation)
+
+
+def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation):
     if sigma_activation not in _ACTIVATIONS:
         raise ValueError(f"unknown sigma activation: {sigma_activation!r}")
     N, S = z_vals.shape
@@ -83,29 +179,29 @@ def integrate(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     depth = torch.empty((N,), **kw)
     acc = torch.empty((N,), **kw)
     weights = torch.empty((N, S), **kw)
-    rc = _lib().launch_integrate(
-        raw.data_ptr(), z_vals.data_ptr(), rays_d.data_ptr(), rgb_map.data_ptr(),
-        depth.data_ptr(), acc.data_ptr(), weights.data_ptr(), N, S,
-        float(ert_threshold), int(sigma_activation == "softplus"),
-        torch.cuda.current_stream(raw.device).cuda_stream)
+    rc = fn(raw.data_ptr(), z_vals.data_ptr(), rays_d.data_ptr(), rgb_map.data_ptr(),
+            depth.data_ptr(), acc.data_ptr(), weights.data_ptr(), N, S,
+            float(ert_threshold), int(sigma_activation == "softplus"),
+            torch.cuda.current_stream(raw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate kernel launch failed: CUDA error {rc}")
-    integrate.launches += 1
     out = finish_maps(rgb_map, depth, acc, white_bkgd)
     out["weights"] = weights
     return out
 
 
-integrate.launches = 0
-
-
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = build.load("integrate")
+    return bind(build.load("integrate"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built ``csrc/integrate.cu``'s exports."""
     p = ctypes.c_void_p
-    lib.launch_integrate.argtypes = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_int, p]
-    lib.launch_integrate.restype = ctypes.c_int
+    for fn in (lib.launch_integrate, lib.launch_integrate_warp):
+        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, p]
+        fn.restype = ctypes.c_int
     return lib
 
 

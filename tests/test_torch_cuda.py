@@ -16,7 +16,12 @@ Tolerances (as chip_smoke.py states them):
   one of them); a point's output alone and inside a larger launch: exact;
   one layer's product through the kernel's wgmma path against
   torch.matmul in float32: within 2^-14 sum |a w| per element;
-- integrate, float32: atol 2e-5 (sums of up to 192 terms in another order);
+- integrate, float32: atol 2e-5 (sums of up to 192 terms in another order),
+  against the plain version and against the previous (warp-round) kernel;
+  a weight is exactly 0 wherever the plain version's transmittance is
+  below the ERT threshold beyond the band its float32 sums' order can move
+  it across (``integrate.past_the_cut``); a ray alone and inside a larger
+  launch: exact;
 - a rendered image: PSNR >= 40 dB against the plain path;
 - fused backward (B2), bf16: every gradient leaf, dpts and ddirs within
   1e-2 in relative norm of the plain version, of the plain backward run
@@ -29,7 +34,9 @@ Tolerances (as chip_smoke.py states them):
 - hash-table row gather (B4): exact; its scatter-add: per element within
   ``hash_gather.scatter_add_tolerance`` of the plain version (two float32
   sums of the same terms in other orders, each rounded once to bf16; the
-  kernel's atomics make its order change from run to run);
+  kernel's atomics make its order change from run to run), and of the
+  previous (one atomic per element) kernel, on index mixes that put runs of
+  equal indices across warp edges;
 - the hash-grid model (random tables): encodings and a render through the
   gather kernel against its plain gather exact (the same rows, the same
   float32 arithmetic after them); one hash-grid train step through the kernels against
@@ -59,6 +66,7 @@ from nerf_tpu_torch.ops import integrate as tint
 from nerf_tpu_torch.render.renderer import RenderOptions, kernel_params, render_rays
 from nerf_tpu_torch.serve import RenderService, look_at_pose
 from nerf_tpu_torch.render.rays import image_rays
+from nerf_tpu_torch.tools import scatter_variants
 from nerf_tpu_torch.train.checkpoint import load_checkpoint, load_params
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -214,6 +222,51 @@ def test_integrate_kernel_matches_plain(cuda, ert, act, n, s):
     assert tint.integrate.launches == before + 1
     for k in ("rgb_map", "depth_map", "acc_map", "weights"):
         torch.testing.assert_close(got[k], want[k], atol=2e-5, rtol=0, msg=k)
+
+
+# (N, S): a lone ray, S not a multiple of 32, the hash-grid tiles and train
+# batches (1024 rays), a lego tile (8192), and rays longer than 256 samples
+# (the kernel's chunked loop)
+INTEGRATE_SHAPES = [(1, 37), (1000, 64), (333, 192), (1024, 64), (1024, 192), (8192, 192),
+                    (77, 100), (5, 257), (64, 300), (3, 1000)]
+
+
+def _integrate_inputs(n, s, cuda):
+    rng = np.random.default_rng(n * 1000 + s)
+    raw = rng.normal(size=(n, s, 4)).astype(np.float32)
+    raw[..., 3] *= 20.0
+    z = np.sort(rng.uniform(2, 6, (n, s)).astype(np.float32), axis=-1)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(cuda) for a in (raw, z, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ert", [0.0, 0.01])
+@pytest.mark.parametrize("act", ["relu", "softplus"])
+@pytest.mark.parametrize("n,s", INTEGRATE_SHAPES)
+def test_integrate_kernel_matches_plain_and_the_warp_kernel(cuda, ert, act, n, s):
+    raw, z, d = _integrate_inputs(n, s, cuda)
+    got = tint.integrate(raw, z, d, ert, True, act)
+    want = tint.integrate_plain(raw, z, d, ert, True, act)
+    old = tint.integrate_warp(raw, z, d, ert, True, act)
+    torch.cuda.synchronize()
+    for k in ("rgb_map", "depth_map", "acc_map", "weights"):
+        torch.testing.assert_close(got[k], want[k], atol=2e-5, rtol=0, msg=k)
+        torch.testing.assert_close(got[k], old[k], atol=2e-5, rtol=0, msg=k)
+    if ert > 0:
+        beyond, _ = tint.past_the_cut(tint.plain_transmittance(raw, z, d, act), ert)
+        assert bool((got["weights"][beyond] == 0).all())
+
+
+@pytest.mark.cuda
+def test_integrate_kernel_is_rowwise(cuda):
+    raw, z, d = _integrate_inputs(8192, 192, cuda)
+    whole = tint.integrate(raw, z, d, 0.01, True, "relu")
+    for n in (1, 33, 1000, 1024):
+        part = tint.integrate(raw[:n].contiguous(), z[:n].contiguous(), d[:n].contiguous(),
+                              0.01, True, "relu")
+        for k in ("rgb_map", "depth_map", "acc_map", "weights"):
+            assert torch.equal(part[k], whole[k][:n]), (n, k)
 
 
 @pytest.mark.cuda
@@ -465,6 +518,28 @@ def test_scatter_add_kernel_matches_plain(cuda, width, dtype):
     assert got.dtype == dtype and got.shape == (n_rows, width)
     tol = hash_gather.scatter_add_tolerance(idx, cot, want)
     assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,width,dtype", [
+    (16 * 65536, 16, torch.bfloat16),  # cellpack rows
+    (16 * 2**19, 2, torch.bfloat16),  # corner rows
+    (4096, 2, torch.float32),
+    (4096, 3, torch.bfloat16)])
+@pytest.mark.parametrize("mix", scatter_variants.MIXES)
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 1 << 20, 3_145_728])
+def test_scatter_add_kernel_on_index_mixes(cuda, n_rows, width, dtype, mix, n):
+    gen = torch.Generator(device=cuda).manual_seed(n + width)
+    idx = scatter_variants.index_mix(mix, n, n_rows, gen)
+    cot = torch.randn((n, width), generator=gen, device=cuda).to(dtype)
+    got = hash_gather.scatter_add_rows(idx, cot, n_rows)
+    want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
+    old = hash_gather.scatter_add_rows_atomic(idx, cot, n_rows)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (n_rows, width)
+    for ref in (want, old):
+        tol = hash_gather.scatter_add_tolerance(idx, cot, ref)
+        assert bool(((got.double() - ref.double()).abs() <= tol).all())
 
 
 @pytest.mark.cuda
