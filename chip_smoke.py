@@ -84,6 +84,36 @@ Phases, each printed with its elapsed seconds:
      integrate on the hash-grid serving tiles and the train step's batches
      (N = 1024, S = 64 and 192) in turns with the previous kernel, and the
      launches x (time - bound) of integrate per request and per step.
+ 15. a Blender-layout scene in a temp directory: the epoch-49 lego model
+     rendered through the kernels at 800x800 (lego's camera_angle_x) at 8
+     test, 2 val and 8 train poses on the orbit, written as RGBA PNGs by the
+     port's encoder (alpha from acc_map, the colour un-whitened, so that the
+     loader's white composite gives the render back within 8-bit rounding;
+     each test view's jitter seeded as the evaluator seeds it) with a
+     transforms_*.json a split; every PNG decoded and compared exactly with
+     what was encoded; the encode and decode rates (frames/s);
+ 16. python -m nerf_tpu_torch.run --type dataset, then --type network (called
+     in-process) on that scene: the 800x800 frame's ms and rays/s over 5
+     frames, the first dropped;
+ 17. --type evaluate with write_video True and render_num 8: the counters
+     must show B1 and B3; every view at PSNR >= 40 dB and SSIM >= 0.99
+     against the scene's PNGs (the same model's renders, rounded to 8
+     bits); the 8 spiral frames and both videos of 8 frames. Then
+     ess_compaction auto (the calibrated fraction printed), and a fixed
+     fraction COMPACTION_MARGIN x the probe's measured kept rate: the
+     compacted frame against the dense frame (PSNR >= 40 dB), B1 on one
+     compacted [cap, 1, 3] fine batch against its plain version (phase 5's
+     gates), the compacted and dense frame times in turns;
+ 18. --type marched: the hierarchical and the marched frame's time and PSNR
+     against the scene; at 100x100 the marched frame through the kernels
+     against the plain versions (PSNR >= 40 dB); one hash-grid test view at
+     200x200, rendered from phase 11's model and written the same way,
+     through --type evaluate (B4's gather and integrate launched; PSNR >= 40);
+ 19. python -m nerf_tpu_torch.train on the Blender scene (train_dataset_module
+     blender, lego's default), the epoch-49 state resumed for one epoch of
+     BLENDER_TRAIN_STEPS steps, an ESS rebuild and one validation on the val
+     split (its "val psnr" line must appear, a skip warning fails); B1, B2
+     and B3 launched; then --test on the checkpoint it wrote.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -1361,6 +1391,377 @@ def b3_summary(rows):
         log(f"B3 launches x (time - bound) per {what}: {new:.4f} ms (previous kernel {old:.4f})")
 
 
+# The evaluation slice (phases 15-19): a Blender-layout scene of the lego
+# model's own renders at the reference's 800x800, through the port's CLIs.
+SCENE = 800
+CAMERA_ANGLE_X = 0.6911112070083618  # lego's transforms_*.json
+SCENE_PHI = 0.45
+# split -> (views, first theta): 8 test, 2 val and 8 train poses on the orbit
+SCENE_SPLITS = {"test": (8, 0.15), "val": (2, 0.55), "train": (8, 0.35)}
+EVAL_PSNR_MIN, EVAL_SSIM_MIN = 40.0, 0.99
+COMPACTION_MARGIN = 1.25  # the fixed fraction's headroom over the measured kept rate
+COMPACTION_MAX = 0.99  # ... and its ceiling, below a tile's points
+MARCH_CHECK = 100  # the marched frame through kernels and plain versions, 100x100
+HASH_SCENE = 200
+BLENDER_TRAIN_STEPS = 20
+
+
+def scene_K(size, dev):
+    import torch
+
+    f = 0.5 * size / math.tan(0.5 * CAMERA_ANGLE_X)
+    return torch.tensor([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]], dtype=torch.float32,
+                        device=dev)
+
+
+def scene_poses(split):
+    import numpy as np
+    from nerf_tpu_torch.serve import look_at_pose
+
+    n, t0 = SCENE_SPLITS[split]
+    return np.stack([look_at_pose(t0 + 2.0 * math.pi * i / n, SCENE_PHI, RADIUS)
+                     for i in range(n)])
+
+
+def render_rgba(params, opts, grid, pose, K, size, seed):
+    """One frame through the renderer -> RGBA uint8 [size, size, 4]: alpha
+    from acc_map, the colour un-whitened (rgb = c + (1 - acc), c = u * acc),
+    so that the loader's white composite u * a + (1 - a) gives the render
+    back within 8-bit rounding. The jitter is seeded with ``seed``: the
+    evaluator's seed of a test view, so that it renders the same frame."""
+    import torch
+    from nerf_tpu_torch.render.renderer import render_image
+
+    out = render_image(params, torch.as_tensor(pose, device=K.device), K, size, size, opts,
+                       grid=grid, generator=torch.Generator(device=K.device).manual_seed(seed))
+    rgb, acc = out["rgb_map"], out["acc_map"].clamp(0, 1)
+    c = rgb - (1.0 - acc)[..., None] if opts.white_bkgd else rgb
+    u = torch.where(acc[..., None] > 0, c / acc.clamp_min(1e-12)[..., None], 0.0)
+    rgba = torch.cat([u.clamp(0, 1), acc[..., None]], -1)
+    return (rgba * 255).round().to(torch.uint8).cpu().numpy()
+
+
+def write_scene(root, service, size, splits, label):
+    """Render ``service``'s model at size x size for each split -> number of
+    views, and write the Blender-layout scene under root/lego; check every
+    PNG decodes to exactly what was encoded; print the codec's rates."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.data.blender import write_blender_scene
+    from nerf_tpu_torch.utils.png import read_png
+
+    params, opts, grid = service.params, service.opts, service.grid
+    K = scene_K(size, service.device)
+    frames = {}
+    t = time.perf_counter()
+    for split, n in splits.items():
+        poses = scene_poses(split)[:n]
+        frames[split] = (np.stack([render_rgba(params, opts, grid, p, K, size, i)
+                                   for i, p in enumerate(poses)]), poses)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t
+    n = sum(len(f[0]) for f in frames.values())
+    t = time.perf_counter()
+    # rows cycle through the five PNG filters, as an encoder's adaptive choice mixes them
+    write_blender_scene(os.path.join(root, "lego"), frames, CAMERA_ANGLE_X,
+                        filters=np.arange(size) % 5)
+    encode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    for split, (imgs, _) in frames.items():
+        for i, img in enumerate(imgs):
+            back = read_png(os.path.join(root, "lego", split, f"r_{i}.png"))
+            check(back.shape == img.shape and bool((back == img).all()),
+                  f"{split}/r_{i}.png does not decode to the encoded pixels")
+    decode_s = time.perf_counter() - t
+    counts = ", ".join(f"{k} {len(v[0])}" for k, v in frames.items())
+    log(f"{label} scene: {n} RGBA frames {size}x{size} ({counts}) "
+        f"rendered in {render_s:.2f} s; PNG (filters 0-4 by row) encoded and written at "
+        f"{n / encode_s:.2f} frames/s ({encode_s / n * 1e3:.1f} ms a frame), read and decoded "
+        f"at {n / decode_s:.2f} frames/s ({decode_s / n * 1e3:.1f} ms a frame, one thread), "
+        f"every frame exactly as encoded")
+    return frames, decode_s / n
+
+
+def _scene_opts(root, scene_dir, extra=()):
+    """The lego config's overrides for the scene: its data, the committed
+    checkpoint, a workspace in the scene's directory."""
+    opts = ["trained_model_dir", os.path.join(root, "checkpoints/nerf/lego/nerf"),
+            "workspace", os.path.join(scene_dir, "ws")]
+    for split in ("train", "test"):
+        opts += [f"{split}_dataset.data_root", scene_dir, f"{split}_dataset.H", str(SCENE),
+                 f"{split}_dataset.W", str(SCENE)]
+    return opts + list(extra)
+
+
+def _run_cli(fn, argv):
+    """Run a CLI's main in-process; its output goes to stdout and is returned.
+    Returns (its result, its output, seconds to a synchronize after it)."""
+    import torch
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    return out, buf.getvalue(), time.perf_counter() - t
+
+
+def scene_phase(root, work, service):
+    """Phase 15: the lego scene, and the Blender loader's read of its test split."""
+    import numpy as np
+    from nerf_tpu_torch.data.blender import BlenderDataset
+
+    scene_dir = os.path.join(work, "lego_scene")
+    frames, decode_frame_s = write_scene(scene_dir, service, SCENE,
+                                         {k: v[0] for k, v in SCENE_SPLITS.items()}, "lego")
+    t = time.perf_counter()
+    ds = BlenderDataset(data_root=scene_dir, split="test", H=SCENE, W=SCENE)
+    load_s = time.perf_counter() - t
+    imgs, _ = frames["test"]
+    f = imgs.astype(np.float32) / 255.0
+    want = f[..., :3] * f[..., 3:] + (1.0 - f[..., 3:])
+    check(bool(np.allclose(ds.images, want, atol=1e-6)), "the loader's composite differs")
+    log(f"BlenderDataset test split ({len(ds)} frames, {os.cpu_count()} threads): "
+        f"{load_s:.3f} s, {len(ds) / load_s:.2f} frames/s")
+    return scene_dir, decode_frame_s, len(ds) / load_s
+
+
+def run_phase(root, scene_dir):
+    """Phase 16: run --type dataset and --type network on the scene."""
+    from nerf_tpu_torch import run
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    ds, _, secs = _run_cli(run.main, ["--type", "dataset", "--cfg_file", cfg_file,
+                                        *_scene_opts(root, scene_dir)])
+    check(len(ds) == SCENE_SPLITS["train"][0] and ds.images.shape[1:] == (SCENE, SCENE, 3),
+          f"run --type dataset: {len(ds)} frames")
+    log(f"run --type dataset: {len(ds)} train frames in {secs:.2f} s")
+    s, _, secs = _run_cli(run.main, ["--type", "network", "--cfg_file", cfg_file,
+                                       *_scene_opts(root, scene_dir)])
+    check(s["frames"] == 4 and s["rays_per_s"] > 0, f"run --type network: {s}")
+    log(f"run --type network: {SCENE}x{SCENE} lego frame {s['mean_time_s'] * 1e3:.1f} ms "
+        f"({s['rays_per_s']:.0f} rays/s, {s['fps']:.3f} fps) over {s['frames']} frames after "
+        f"the first; {secs:.2f} s with the ESS rebuild")
+    return s
+
+
+def _avi_frames(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    i = data.index(b"avih") + 8
+    return int.from_bytes(data[i + 16:i + 20], "little")
+
+
+def evaluate_phase(root, scene_dir, counters):
+    """Phase 17: run --type evaluate with the video, then compaction."""
+    from nerf_tpu_torch import run
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    result = os.path.join(scene_dir, "result")
+    for c in counters.values():
+        c.launches = 0
+    summary, text, secs = _run_cli(run.main, [
+        "--type", "evaluate", "--cfg_file", cfg_file,
+        *_scene_opts(root, scene_dir, ["write_video", "True", "render_num", "8",
+                                       "result_dir", result])])
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"run --type evaluate: {secs:.2f} s; launches {launches}")
+    check(all(v > 0 for v in launches.values()), "evaluate did not launch every kernel")
+    with open(os.path.join(result, "metrics", "evaluation_results.json")) as f:
+        per = json.load(f)["per_image"]
+    n_test = SCENE_SPLITS["test"][0]
+    check(len(per) == n_test, f"{len(per)} views evaluated")
+    worst = (min(p["psnr"] for p in per), min(p["ssim"] for p in per))
+    log(f"evaluate: {n_test} views, PSNR {worst[0]:.2f} dB at worst (min {EVAL_PSNR_MIN}), "
+        f"SSIM {worst[1]:.5f} at worst (min {EVAL_SSIM_MIN}); mean PSNR "
+        f"{summary['avg_psnr']:.2f}, SSIM {summary['avg_ssim']:.5f}")
+    check(worst[0] >= EVAL_PSNR_MIN and worst[1] >= EVAL_SSIM_MIN,
+          "an evaluated view is below the PSNR/SSIM gate")
+    fps = re.search(r"mean net_time: (\S+)s  fps: (\S+)  rays/s: (\S+)", text)
+    check(fps is not None, "evaluate printed no fps line")
+    log(f"evaluate: {float(fps.group(1)) * 1e3:.1f} ms a frame, {fps.group(2)} fps, "
+        f"{fps.group(3)} rays/s")
+    frames = sorted(os.listdir(os.path.join(result, "frames")))
+    check(frames == [f"view{i:04d}_rgb.png" for i in range(8)], f"spiral frames {frames}")
+    videos = sorted(os.listdir(os.path.join(result, "videos")))
+    check(len(videos) == 2, f"videos {videos}")
+    for v in videos:
+        path = os.path.join(result, "videos", v)
+        n = _avi_frames(path) if v.endswith(".avi") else (8 if os.path.getsize(path) else 0)
+        check(n == 8, f"{v}: {n} frames")
+    log(f"spiral: {len(frames)} frames, videos {videos} of 8 frames each")
+    return {"fps": float(fps.group(2)), "ms": float(fps.group(1)) * 1e3, "seconds": secs}
+
+
+def compaction_phase(root, scene_dir, errs, dev):
+    """Phase 17 (continued): ess_compaction auto, then a fixed fraction
+    COMPACTION_MARGIN x the measured kept rate against the dense frame; B1
+    on one compacted fine batch against its plain version."""
+    import torch
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.render import renderer as rend
+    from nerf_tpu_torch.render.rays import image_rays
+    from nerf_tpu_torch.run import load_eval_model
+
+    cfg = make_cfg(os.path.join(root, "configs/nerf/lego.yaml"), _scene_opts(root, scene_dir))
+    opts, params, grid = load_eval_model(cfg, dev)
+    K = scene_K(SCENE, dev)
+    pose = torch.as_tensor(scene_poses("test")[0], device=dev)
+    ro, rd = image_rays(SCENE, SCENE, K, pose)
+    mid = SCENE * SCENE // 2
+    po, pd = ro[mid - 2048:mid + 2048].contiguous(), rd[mid - 2048:mid + 2048].contiguous()
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+    auto = rend.resolve_compaction(dataclasses.replace(opts, ess_compaction=-1.0), params, grid,
+                                   po, pd, gen())
+    out = rend.render_rays(params, po, pd, opts, grid=grid, generator=gen())
+    pts_f = po[:, None, :] + pd[:, None, :] * out["fine_z_vals"][..., None]
+    kept = float(rend.fine_pass_mask(grid, pts_f).float().mean())
+    n_tile = opts.tile_rays * out["fine_z_vals"].shape[1]
+    # at least COMPACTION_MARGIN x kept, but below every point of a tile, so
+    # that the compacted path runs (at a kept rate near 0.9 the margin asks
+    # for more than a tile holds)
+    cap = min(rend.compaction_capacity(n_tile, COMPACTION_MARGIN * kept),
+              rend.compaction_capacity(n_tile, COMPACTION_MAX))
+    frac = cap / n_tile
+    log(f"compaction: auto -> {auto.ess_compaction:.4f}; the probe's (middle 4096 rays of view "
+        f"0) fine-pass kept rate {kept:.4f}; fixed fraction {frac:.4f}, capacity {cap} of "
+        f"{n_tile} a tile ({COMPACTION_MARGIN} x kept would be "
+        f"{COMPACTION_MARGIN * kept:.4f}; at most {COMPACTION_MAX})")
+    comp = dataclasses.replace(opts, ess_compaction=frac)
+
+    def frame(o):
+        return rend.render_image(params, pose, K, SCENE, SCENE, o, grid=grid,
+                                 generator=gen())["rgb_map"]
+
+    with _spy(fused_mlp, "fused_nerf_eval") as seen:
+        rgb_c = frame(comp)
+    batches = [a for a, _ in seen if a[1].shape[0] == cap]
+    check(len(batches) > 0, "no compacted batch reached B1")
+    kp, pts, dirs = batches[len(batches) // 2][:3]
+    errs.append(fused_errors(f"compacted fine batch [{pts.shape[0]}, 1, 3]", kp, pts, dirs))
+    rgb_d = frame(opts)
+    psnr = -10.0 * math.log10(max(float(torch.mean((rgb_c - rgb_d) ** 2)), 1e-20))
+    times = {}
+    for name, o in (("dense", opts), ("compacted", comp), ("compacted", comp), ("dense", opts)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frame(o)
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t)
+    dense_ms = sum(times["dense"]) / 2 * 1e3
+    comp_ms = sum(times["compacted"]) / 2 * 1e3
+    turns = (times["dense"][0], *times["compacted"], times["dense"][1])
+    log(f"compaction at {frac:.4f}: frame {SCENE}x{SCENE} {comp_ms:.1f} ms, dense {dense_ms:.1f} "
+        f"ms (turns dense, compacted, compacted, dense: "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in turns)}); "
+        f"compacted vs dense frame PSNR {psnr:.2f} dB (min {PSNR_MIN_DB}); "
+        f"{len(batches)} compacted fine batches of {pts.shape[0]} points")
+    check(psnr >= PSNR_MIN_DB, "the compacted frame disagrees with the dense frame")
+    return {"auto": auto.ess_compaction, "kept": kept, "frac": frac, "ms": comp_ms,
+            "dense_ms": dense_ms, "psnr": psnr}
+
+
+def marched_phase(root, scene_dir, dev):
+    """Phase 18: run --type marched on the scene, then the marched frame at
+    100x100 through the kernels against the plain versions."""
+    import torch
+    from nerf_tpu_torch import run
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.render.marched import render_image_marched
+    from nerf_tpu_torch.run import load_eval_model
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    before = fused_mlp.fused_nerf_eval.launches
+    res, _, secs = _run_cli(run.main, ["--type", "marched", "--cfg_file", cfg_file,
+                                         *_scene_opts(root, scene_dir)])
+    h, m = res["hierarchical"], res["marched"]
+    b1 = fused_mlp.fused_nerf_eval.launches - before
+    log(f"run --type marched ({secs:.2f} s; B1 launches {b1}): "
+        f"hierarchical {h['seconds'] * 1e3:.1f} ms a frame, PSNR {h['psnr']:.2f} dB; marched "
+        f"{m['seconds'] * 1e3:.1f} ms, PSNR {m['psnr']:.2f} dB (16 blocks x 16 samples)")
+    check(all(math.isfinite(r["psnr"]) for r in res.values()), "marched PSNR not finite")
+    opts, params, grid = load_eval_model(make_cfg(cfg_file, _scene_opts(root, scene_dir)), dev)
+    K = scene_K(MARCH_CHECK, dev)
+    pose = torch.as_tensor(scene_poses("test")[0], device=dev)
+    k = render_image_marched(params, pose, K, MARCH_CHECK, MARCH_CHECK, opts, grid=grid)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    p = render_image_marched(params, pose, K, MARCH_CHECK, MARCH_CHECK, plain, grid=grid)
+    psnr = -10.0 * math.log10(max(float(torch.mean((k["rgb_map"] - p["rgb_map"]) ** 2)), 1e-20))
+    log(f"marched {MARCH_CHECK}x{MARCH_CHECK}, kernels vs plain versions: PSNR {psnr:.2f} dB "
+        f"(min {PSNR_MIN_DB}), acc mean {float(k['acc_map'].mean()):.4f}")
+    check(bool(torch.isfinite(k["rgb_map"]).all()) and psnr >= PSNR_MIN_DB,
+          "the marched frame through the kernels disagrees with the plain versions")
+    return {"hier_ms": h["seconds"] * 1e3, "hier_psnr": h["psnr"], "march_ms": m["seconds"] * 1e3,
+            "march_psnr": m["psnr"], "kernel_vs_plain_psnr": psnr}
+
+
+def hash_eval_phase(root, work, hservice, hcfg):
+    """Phase 18 (continued): one hash-grid test view at 200x200, rendered
+    from phase 11's model, through run --type evaluate (B4 on the eval path)."""
+    from nerf_tpu_torch import run
+
+    scene_dir = os.path.join(work, "hash_scene")
+    write_scene(scene_dir, hservice, HASH_SCENE, {"test": 1}, "hash-grid")
+    counters = _hash_counters()
+    for c in counters.values():
+        c.launches = 0
+    result = os.path.join(scene_dir, "result")
+    summary, _, secs = _run_cli(run.main, [
+        "--type", "evaluate", "--cfg_file",
+        os.path.join(root, "configs/nerf/lego_hashgrid_cellpack.yaml"),
+        "trained_model_dir", hcfg.trained_model_dir, "test_dataset.data_root", scene_dir,
+        "test_dataset.H", str(HASH_SCENE), "test_dataset.W", str(HASH_SCENE),
+        "write_video", "False", "result_dir", result, "workspace", os.path.join(scene_dir, "ws")])
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"hash-grid run --type evaluate, one {HASH_SCENE}x{HASH_SCENE} view: {secs:.2f} s, "
+        f"PSNR {summary['avg_psnr']:.2f} dB, SSIM {summary['avg_ssim']:.5f}; launches {launches}")
+    check(launches["hash_gather_rows"] > 0 and launches["integrate"] > 0,
+          "the hash-grid evaluation did not launch the gather and integrate")
+    check(summary["avg_psnr"] >= EVAL_PSNR_MIN, "the hash-grid view is below the PSNR gate")
+
+
+def blender_train_phase(root, work, scene_dir, counters):
+    """Phase 19: the trainer on the Blender scene from the resumed epoch-49
+    state, BLENDER_TRAIN_STEPS steps, an ESS rebuild and one validation;
+    then --test on the checkpoint it wrote."""
+    from nerf_tpu_torch.train.__main__ import main as train_main
+
+    model_dir = os.path.join(work, "blender_model")
+    os.makedirs(model_dir)
+    src = os.path.join(root, "checkpoints/nerf/lego/nerf")
+    for f in ("latest.npz", "latest.json"):
+        shutil.copy(os.path.join(src, f), model_dir)
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    opts = [*_scene_opts(root, scene_dir), "trained_model_dir", model_dir,
+            "record_dir", os.path.join(work, "blender_record"), "ep_iter",
+            str(BLENDER_TRAIN_STEPS), "train.epoch", "51", "eval_ep", "51",
+            "grid_rebuild_ep", "1", "log_interval", "10"]
+    _, _, launches, text, secs = _drive_trainer(cfg_file, opts, counters)
+    log(f"train on the Blender scene: {secs:.2f} s (load, resume, {BLENDER_TRAIN_STEPS} steps, "
+        f"ESS rebuild, validation, checkpoint); launches {launches}")
+    check(all(v > 0 for v in launches.values()), "a kernel was not launched by the train path")
+    check("skipping validation" not in text, "validation was skipped")
+    val = re.findall(r"val psnr: (\S+)", text)
+    check(len(val) == 1, f"validation lines {val}")
+    rate = re.search(r"epoch 50 done in (\S+)s  \((\S+) train rays/s\)", text)
+    check(rate is not None, "no epoch line")
+    step_ms = float(rate.group(1)) * 1e3 / BLENDER_TRAIN_STEPS
+    log(f"Blender-data train: {step_ms:.2f} ms a step over the epoch of {BLENDER_TRAIN_STEPS} "
+        f"(first steps included), {rate.group(2)} train rays/s; val psnr {val[0]}")
+    result = os.path.join(work, "blender_test")
+    _, _, secs = _run_cli(train_main, ["--test", "--cfg_file", cfg_file, *opts,
+                                         "write_video", "False", "result_dir", result])
+    with open(os.path.join(result, "metrics", "evaluation_results.json")) as f:
+        summary = json.load(f)["summary"]
+    check(summary["num_images"] == SCENE_SPLITS["test"][0] and
+          math.isfinite(summary["avg_psnr"]), f"--test summary {summary}")
+    log(f"train --test on that checkpoint: {secs:.2f} s, mean PSNR {summary['avg_psnr']:.2f} dB, "
+        f"SSIM {summary['avg_ssim']:.5f}")
+    return {"step_ms": step_ms, "val_psnr": float(val[0])}
+
+
 def main() -> int:
     import torch
 
@@ -1443,13 +1844,23 @@ def main() -> int:
     for k in kernels:
         k["launches"] = train_launches[k["name"]]
 
+    work = tempfile.TemporaryDirectory()  # phases 11-19; the hash-grid model serves phase 18
+    try:
+        return _from_phase_11(root, dev, smi, work.name, service, kernels, b3_rows, hash_errs)
+    finally:
+        work.cleanup()
+
+
+def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp, integrate
+
     log("phase 11: train the hash-grid model through the entry point")
-    with tempfile.TemporaryDirectory() as tmp:
-        hcfg, hstate, _, hash_launches = hash_train_phase(root, tmp)
-        log("phase 12: serve the hash-grid checkpoint")
-        hservice, _, hserve_launches, request_ms = serve_phase(
-            dev, hcfg, {k: c for k, c in _hash_counters().items()
-                        if k != "hash_scatter_add_rows"}, n_timed=HASH_N_TIMED)
+    hcfg, hstate, _, hash_launches = hash_train_phase(root, work)
+    log("phase 12: serve the hash-grid checkpoint")
+    hservice, _, hserve_launches, request_ms = serve_phase(
+        dev, hcfg, {k: c for k, c in _hash_counters().items()
+                    if k != "hash_scatter_add_rows"}, n_timed=HASH_N_TIMED)
     hash_int_err, hash_b3 = hash_path_phase(hservice)
     plain_phase(hservice)
     log("phase 13: the scatter-add and a whole hash-grid step against their plain versions")
@@ -1481,7 +1892,29 @@ def main() -> int:
                     "launches": hash_launches["hash_scatter_add_rows"],
                     "max_abs_err": max(hash_errs["scatter"], scatter_err), **scatter_t})
 
-    log("phase 15: done")
+    log("phase 15: a Blender-layout scene of the lego model's renders")
+    scene_dir, decode_s, load_fps = scene_phase(root, work, service)
+    log("phase 16: run --type dataset, --type network")
+    network = run_phase(root, scene_dir)
+    log("phase 17: run --type evaluate, the video, compaction")
+    evaluated = evaluate_phase(root, scene_dir, {"fused_nerf_eval": fused_mlp.fused_nerf_eval,
+                                                 "integrate": integrate.integrate})
+    compacted_errs = []
+    compaction = compaction_phase(root, scene_dir, compacted_errs, dev)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], check_fused_max(compacted_errs))
+    log("phase 18: run --type marched; a hash-grid view through run --type evaluate")
+    march = marched_phase(root, scene_dir, dev)
+    hash_eval_phase(root, work, hservice, hcfg)
+    log("phase 19: train on the Blender scene with validation, then --test")
+    blender = blender_train_phase(root, work, scene_dir, _counters())
+    log(f"evaluation slice on {smi}: {SCENE}x{SCENE} lego frame {network['mean_time_s'] * 1e3:.1f} "
+        f"ms (run --type network), evaluate {evaluated['fps']:.3f} fps; PNG decode "
+        f"{1.0 / decode_s:.2f} frames/s a thread, the loader {load_fps:.2f} frames/s; compaction "
+        f"auto {compaction['auto']:.4f}, fixed {compaction['frac']:.4f}: {compaction['ms']:.1f} ms "
+        f"vs dense {compaction['dense_ms']:.1f} ms; hierarchical {march['hier_ms']:.1f} ms "
+        f"({march['hier_psnr']:.2f} dB) vs marched {march['march_ms']:.1f} ms "
+        f"({march['march_psnr']:.2f} dB); Blender-data train step {blender['step_ms']:.2f} ms")
+    log("phase 20: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(smi, flush=True)

@@ -4,9 +4,10 @@ A config is a tree of dicts with attribute access, loaded from YAML with
 its ``parent_cfg`` chain merged (parent first), then overridden by trailing
 ``key.sub value`` pairs. The defaults are ``nerf_tpu``'s for what the port
 reads: ``RenderOptions.from_cfg``, the trainer (datasets, optimizer,
-schedule, cadence, ``seed``, ``resume``) and the output directories, which
-default, as in ``nerf_tpu``, to ``<workspace>/<kind>/<task>/<scene>/<exp_name>``
-for ``trained_model_dir`` and ``record_dir``.
+schedule, cadence, ``seed``, ``resume``), evaluation (video, background)
+and the output directories, which default, as in ``nerf_tpu``, to
+``<workspace>/<kind>/<task>/<scene>/<exp_name>`` for ``trained_model_dir``,
+``record_dir`` and ``result_dir``.
 """
 from __future__ import annotations
 
@@ -82,8 +83,10 @@ def default_cfg() -> Config:
         "enable_ess": True, "enable_ert": True, "ert_threshold": 0.01,
         "occupancy_grid_resolution": 128,
         "use_pallas_kernels": True, "use_pallas_integrate": True,
-        "render_tile_rays": 8192,
-        "workspace": "workspace", "trained_model_dir": "", "record_dir": "",
+        "render_tile_rays": 8192, "ess_compaction": 0.0,
+        "write_video": False, "render_type": "spiral", "render_num": 120, "fps": 24,
+        "background_strategy": "none",
+        "workspace": "workspace", "trained_model_dir": "", "record_dir": "", "result_dir": "",
     })
 
 
@@ -125,7 +128,8 @@ def make_cfg(cfg_file: Optional[str] = None, opts: Optional[List[str]] = None) -
     for key, val in zip(opts[::2], opts[1::2]):
         cfg.set_path(key, _coerce(val))
     tail = os.path.join(cfg.task, cfg.get("scene", ""), cfg.exp_name)
-    for key, kind in (("trained_model_dir", "trained_model"), ("record_dir", "record")):
+    for key, kind in (("trained_model_dir", "trained_model"), ("record_dir", "record"),
+                      ("result_dir", "result")):
         if not cfg.get(key):
             cfg[key] = os.path.join(cfg.get("workspace", "workspace"), kind, tail)
     return cfg

@@ -1,1 +1,2 @@
-"""Image metrics; counterpart of ``nerf_tpu/eval``."""
+"""Evaluation (metrics, the evaluator, background conversion, video);
+counterpart of ``nerf_tpu/eval``."""

@@ -15,6 +15,14 @@ query's kernels as ``nerf_tpu``'s ``use_pallas`` is, its plain version), the
 directions' frequency encoding and the MLP in plain PyTorch, as the JAX
 package runs that MLP through XLA.
 
+Compaction (``RenderOptions.ess_compaction`` > 0, evaluation only): the
+fine pass evaluates only the samples that lie in occupied voxels
+(``fine_pass_mask``), gathered into a batch of
+``compaction_capacity`` points (a multiple of 256) that reaches the MLP as
+[cap, 1, 3] points with their own view directions; samples left out get
+``EMPTY_SIGMA_RAW``. ``calibrate_compaction`` sets the fraction from a
+probe batch's kept rate (``ess_compaction: auto``).
+
 Serving renders under ``no_grad`` with kernel weights (``kernel_params``).
 Training (``render_rays(..., train=True)``) takes the standard MLP trees,
 draws random fine-sample positions, detaches the fine-sampling inputs
@@ -37,7 +45,7 @@ from ..ops.fused_mlp import (fused_nerf_eval, fused_nerf_eval_plain, query_netwo
 from ..ops.integrate import composite_kernel
 from ..tree import tree_map
 from . import occupancy as occ
-from .composite import composite, density_activation
+from .composite import EMPTY_SIGMA_RAW, composite, density_activation
 from .rays import image_rays
 from .sampling import sample_coarse, sample_pdf
 
@@ -58,6 +66,9 @@ class RenderOptions:
     enable_ert: bool = True
     ert_threshold: float = 0.01
     enable_ess: bool = True
+    # the fine pass's compaction capacity as a fraction of its points; 0 is
+    # off, -1 is "auto" (resolve_compaction calibrates it per checkpoint)
+    ess_compaction: float = 0.0
     xyz_freqs: int = 10
     dir_freqs: int = 4
     # the xyz encoder: "frequency" or "hashgrid" (models/hashgrid.py)
@@ -106,8 +117,8 @@ class RenderOptions:
     @classmethod
     def from_cfg(cls, cfg) -> "RenderOptions":
         """The options of a ``nerf_tpu`` config, for the models the port
-        runs: the NeRF with the frequency or the hash-grid xyz encoder,
-        without compaction."""
+        runs: the NeRF with the frequency or the hash-grid xyz encoder.
+        ``ess_compaction: auto`` becomes -1, as in the JAX package."""
         net = cfg.network
         if str(cfg.get("network_module", "nerf")) != "nerf":
             raise NotImplementedError(f"network_module {cfg.network_module!r} is not ported")
@@ -115,8 +126,6 @@ class RenderOptions:
         kind = xyz.get("type", "frequency")
         if kind not in ("frequency", "hashgrid", "grid_hash"):
             raise NotImplementedError(f"xyz encoder {kind!r} is not ported")
-        if float(cfg.get("ess_compaction", 0.0) or 0.0) != 0.0:
-            raise NotImplementedError("ess_compaction is not ported")
         hash_kw = {}
         if kind != "frequency":
             hash_kw = dict(
@@ -143,6 +152,8 @@ class RenderOptions:
             enable_ert=bool(cfg.get("enable_ert", True)),
             ert_threshold=float(cfg.get("ert_threshold", 0.01)),
             enable_ess=bool(cfg.get("enable_ess", True)),
+            ess_compaction=(-1.0 if str(cfg.get("ess_compaction", 0.0)) == "auto"
+                            else float(cfg.get("ess_compaction", 0.0))),
             xyz_freqs=int(net.xyz_encoder.get("freq", 10)),
             dir_freqs=int(net.dir_encoder.freq),
             sigma_activation=str(net.get("sigma_activation", "relu")),
@@ -249,6 +260,104 @@ def query_hashgrid(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch
     return raw.reshape(n, s, 4)
 
 
+def query(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
+          opts: RenderOptions) -> torch.Tensor:
+    """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] through the model's
+    query: the fused kernel (or its plain version), or the hash-grid query."""
+    if opts.hashgrid:
+        return query_hashgrid(params, pts, viewdirs, opts)
+    return query_network(params, pts, viewdirs, plain=not opts.use_fused_mlp,
+                         xyz_freqs=opts.xyz_freqs, dir_freqs=opts.dir_freqs,
+                         weight_dtype=_DTYPES[opts.compute_dtype])
+
+
+def query_masked_compacted(params: Mapping[str, Any], pts: torch.Tensor,
+                           viewdirs: torch.Tensor, opts: RenderOptions, mask: torch.Tensor,
+                           cap: int) -> torch.Tensor:
+    """pts [N, S, 3], viewdirs [N, 3], mask [N, S] -> raw [N, S, 4], querying
+    only the masked points: kept point i goes to slot cumsum(mask)[i] - 1 of a
+    [cap, 1, 3] batch with its own view direction. Points past the capacity
+    and points left out read ``EMPTY_SIGMA_RAW`` (density exactly 0 under
+    every activation); unfilled slots query point 0 and are never read.
+    With cap >= N * S every point is queried, as by ``query``."""
+    n, s, _ = pts.shape
+    P = n * s
+    if cap >= P:
+        return query(params, pts, viewdirs, opts)
+    flat_mask = mask.reshape(P)
+    slot = torch.cumsum(flat_mask.to(torch.int64), 0) - 1
+    keep = flat_mask & (slot < cap)
+    kept = torch.nonzero(keep).squeeze(1)
+    gather_idx = torch.zeros(cap, dtype=torch.int64, device=pts.device)
+    gather_idx[slot[kept]] = kept
+    dirs = viewdirs[:, None, :].expand(n, s, 3).reshape(P, 3)
+    raw_c = query(params, pts.reshape(P, 3)[gather_idx][:, None, :], dirs[gather_idx],
+                  opts).reshape(cap, 4)
+    empty = torch.tensor([0.0, 0.0, 0.0, EMPTY_SIGMA_RAW], dtype=raw_c.dtype,
+                         device=raw_c.device)
+    raw = torch.where(keep[:, None], raw_c[slot.clamp(0, cap - 1)], empty)
+    return raw.reshape(n, s, 4)
+
+
+def compaction_capacity(n_points: int, fraction: float) -> int:
+    """The compacted batch's size: ``fraction`` of the points, rounded up to
+    a multiple of 256, at least 256."""
+    cap = int(n_points * fraction)
+    return max(256, ((cap + 255) // 256) * 256)
+
+
+def fine_pass_mask(grid: occ.OccupancyGrid, pts_f: torch.Tensor) -> torch.Tensor:
+    """[N, Sf] keep-mask of the fine pass: the sample's voxel is occupied.
+
+    The JAX package's mask also drops samples where the coarse pass's
+    transmittance, read after the preceding coarse sample, is below the ERT
+    threshold. That is not a skip of samples the composite would zero: it
+    reads T at the end of the preceding sample's interval, so it drops the
+    fine samples inside the interval where the coarse ray turns opaque,
+    which is where the fine pass puts them (800x800 lego frames at 21.6 and
+    22.6 dB from the dense frames on an H100; read before that sample, 34.7
+    and 36.3 dB, the coarse and fine surfaces differing;
+    ``tools/compaction_masks.py``). The port keeps occupancy alone (59.7 and
+    48.8 dB from dense: the grid's own cut)."""
+    return occ.query(grid, pts_f.reshape(-1, 3)).reshape(pts_f.shape[:-1])
+
+
+def calibrate_compaction(params: Mapping[str, Any], rays_o: torch.Tensor, rays_d: torch.Tensor,
+                         opts: RenderOptions, grid: occ.OccupancyGrid,
+                         generator: Optional[torch.Generator] = None, margin: float = 1.25,
+                         disable_above: float = 0.30) -> float:
+    """A compaction fraction for this checkpoint: the fine pass's kept rate
+    on the probe rays times ``margin``, rounded up to what
+    ``compaction_capacity`` allocates; 0 (off) when that reaches
+    ``disable_above``, where the JAX package found the dense pass faster."""
+    out = render_rays(params, rays_o, rays_d, dataclasses.replace(opts, ess_compaction=0.0),
+                      grid=grid, generator=generator)
+    if "fine_z_vals" not in out:
+        return 0.0
+    z_all = out["fine_z_vals"]
+    pts_f = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., None]
+    kept = float(fine_pass_mask(grid, pts_f).float().mean())
+    n_pts = z_all.shape[0] * z_all.shape[1]
+    frac = compaction_capacity(n_pts, min(1.0, margin * kept)) / n_pts
+    return 0.0 if frac >= disable_above else frac
+
+
+def resolve_compaction(opts: RenderOptions, params: Mapping[str, Any],
+                       grid: Optional[occ.OccupancyGrid], rays_o: torch.Tensor,
+                       rays_d: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> RenderOptions:
+    """``ess_compaction: auto`` (-1) -> the fraction ``calibrate_compaction``
+    measures on the probe rays (0 without an ESS grid); any other value is
+    kept."""
+    if opts.ess_compaction >= 0.0:
+        return opts
+    if grid is None or not opts.enable_ess:
+        return dataclasses.replace(opts, ess_compaction=0.0)
+    frac = calibrate_compaction(params, rays_o, rays_d, opts, grid, generator)
+    print(f"# ess_compaction auto -> {frac:.3f} (calibrated)", flush=True)
+    return dataclasses.replace(opts, ess_compaction=frac)
+
+
 def _composite(raw, z_vals, rays_d, opts: RenderOptions, generator):
     if opts.raw_noise_std > 0.0:
         return composite(raw, z_vals, rays_d, raw_noise_std=opts.raw_noise_std,
@@ -271,19 +380,15 @@ def render_rays(params: Mapping[str, Dict[str, torch.Tensor]], rays_o: torch.Ten
     standard MLP trees. Returns rgb_map_0 / disp_map_0 / acc_map_0 /
     depth_map_0 (coarse), rgb_map / ... (fine), the coarse and fine weights
     and z values. ``train``: random fine-sample positions, gradients on;
-    otherwise ``no_grad`` and deterministic fine samples."""
+    otherwise ``no_grad`` and deterministic fine samples, and compaction
+    where ``opts.ess_compaction`` > 0 and there is a grid (never in
+    training: there the kept rate outgrows any fixed capacity, and dropped
+    samples would carry no gradient)."""
     with contextlib.nullcontext() if train else torch.no_grad():
         return _render_rays(params, rays_o, rays_d, opts, grid, generator, train)
 
 
 def _render_rays(params, rays_o, rays_d, opts: RenderOptions, grid, generator, train):
-    def query(model, pts):
-        if opts.hashgrid:
-            return query_hashgrid(model, pts, rays_d, opts)
-        return query_network(model, pts, rays_d, plain=not opts.use_fused_mlp,
-                             xyz_freqs=opts.xyz_freqs, dir_freqs=opts.dir_freqs,
-                             weight_dtype=_DTYPES[opts.compute_dtype])
-
     if opts.enable_ess and grid is not None:
         z_vals = occ.sample_coarse_with_ess(
             grid, rays_o, rays_d, opts.n_samples, opts.near, opts.far,
@@ -293,7 +398,7 @@ def _render_rays(params, rays_o, rays_d, opts: RenderOptions, grid, generator, t
                                perturb=opts.perturb, lindisp=opts.lindisp,
                                generator=generator, device=rays_o.device)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., None]
-    raw = query(params["coarse"], pts)
+    raw = query(params["coarse"], pts, rays_d, opts)
     out_c = _composite(raw, z_vals.contiguous(), rays_d, opts, generator)
     ret = {"rgb_map_0": out_c["rgb_map"], "disp_map_0": out_c["disp_map"],
            "acc_map_0": out_c["acc_map"], "depth_map_0": out_c["depth_map"],
@@ -307,7 +412,12 @@ def _render_rays(params, rays_o, rays_d, opts: RenderOptions, grid, generator, t
                             generator=generator)
         z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
         pts_f = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., None]
-        raw_f = query(params["fine"], pts_f)
+        if opts.enable_ess and grid is not None and opts.ess_compaction > 0.0 and not train:
+            cap = compaction_capacity(z_all.shape[0] * z_all.shape[1], opts.ess_compaction)
+            raw_f = query_masked_compacted(params["fine"], pts_f, rays_d, opts,
+                                           fine_pass_mask(grid, pts_f), cap)
+        else:
+            raw_f = query(params["fine"], pts_f, rays_d, opts)
         out_f = _composite(raw_f, z_all.contiguous(), rays_d, opts, generator)
         ret.update(rgb_map=out_f["rgb_map"], disp_map=out_f["disp_map"],
                    acc_map=out_f["acc_map"], depth_map=out_f["depth_map"],

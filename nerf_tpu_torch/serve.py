@@ -8,7 +8,7 @@ Usage:
     python -m nerf_tpu_torch.serve --cfg_file configs/nerf/lego.yaml \\
         trained_model_dir checkpoints/nerf/lego/nerf [--port 8765] [--size 200]
 
-Frames are PNG, encoded with the standard library (zlib + struct). Every
+Frames are PNG, encoded by the port's codec (``utils/png.py``). Every
 failed ``/frame`` answers 500, is counted in ``RenderService.errors`` and
 has its traceback printed to stderr.
 """
@@ -16,10 +16,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import struct
 import threading
 import traceback
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Union
 from urllib.parse import parse_qs, urlparse
@@ -29,9 +27,9 @@ import torch
 
 from .config import make_cfg
 from .device import resolve_device
-from .render import occupancy as occ
-from .render.renderer import RenderOptions, kernel_params, make_density_fn, render_image
-from .train.checkpoint import load_params
+from .render.renderer import RenderOptions, render_image
+from .run import load_eval_model
+from .utils.png import decode_png, encode_png  # noqa: F401  decode_png: for the server's clients
 
 _PAGE = """<!DOCTYPE html><html><body style="margin:0;background:#222">
 <img id=v style="display:block;margin:auto;image-rendering:pixelated;width:600px">
@@ -67,65 +65,13 @@ def look_at_pose(theta: float, phi: float, radius: float) -> np.ndarray:
     return pose
 
 
-def _chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """[H, W, 3] uint8 -> PNG bytes (8-bit RGB, filter 0 on every row)."""
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-    return (b"\x89PNG\r\n\x1a\n"
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _chunk(b"IEND", b""))
-
-
-def decode_png(data: bytes) -> np.ndarray:
-    """The inverse of ``encode_png``: PNG bytes of that form -> [H, W, 3] uint8.
-    Checks every chunk's CRC; raises ``ValueError`` on any other PNG."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError("not a PNG")
-    pos, idat, hdr = 8, b"", None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos: pos + 4])
-        tag, body = data[pos + 4: pos + 8], data[pos + 8: pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n: pos + 12 + n])
-        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"bad CRC in {tag!r}")
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    if hdr is None or hdr[2:] != (8, 2, 0, 0, 0):
-        raise ValueError(f"unsupported PNG header {hdr}")
-    w, h = hdr[0], hdr[1]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError("unsupported PNG row filter")
-    return rows[:, 1:].reshape(h, w, 3).copy()
-
-
 class RenderService:
     """Holds the models and the ESS grid; renders poses one at a time."""
 
     def __init__(self, cfg, size: int = 200, device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
         self.size = size
-        self.opts = RenderOptions.from_cfg(cfg)
-        self.params = kernel_params(load_params(cfg.trained_model_dir,
-                                                **self.opts.model_shape()),
-                                    self.opts, self.device)
-        self.grid: Optional[occ.OccupancyGrid] = None
-        if self.opts.enable_ess:
-            # init_grid's random voxels are all overwritten by the rebuild
-            gen = torch.Generator(device=self.device).manual_seed(1)
-            grid = occ.init_grid(int(cfg.get("occupancy_grid_resolution", 128)),
-                                 generator=gen, device=self.device)
-            self.grid = occ.populate_from_density(
-                grid, make_density_fn(self.params["coarse"], self.opts))
+        self.opts, self.params, self.grid = load_eval_model(cfg, self.device)
         f = 1.39 * size
         self.K = torch.tensor([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]],
                               dtype=torch.float32, device=self.device)

@@ -4,7 +4,8 @@
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions on the CPU.
 ``auto_restart N`` resumes from the latest checkpoint after up to N failures.
-Evaluation (``--test``) and the img_fit task come with later slices.
+``--test`` evaluates the checkpoint in ``trained_model_dir`` instead
+(``run.run_evaluate``). The img_fit task is not ported.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ def parse_args(argv=None):
     parser.add_argument("--cfg_file", default=None)
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
     parser.add_argument("--det", action="store_true", help="seed 42, as fix_random")
+    parser.add_argument("--test", action="store_true", help="evaluate instead of training")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = parser.parse_args(argv)
     cfg = make_cfg(args.cfg_file, args.opts)
@@ -33,6 +35,10 @@ def main(argv=None):
     cfg, args = parse_args(argv)
     if cfg.task != "nerf":
         raise NotImplementedError(f"task {cfg.task!r} is not ported")
+    if args.test:
+        from ..run import run_evaluate
+
+        return run_evaluate(cfg, device=args.device)
     max_restarts = int(cfg.get("auto_restart", 0))
     attempt = 0
     while True:

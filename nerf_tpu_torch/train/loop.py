@@ -182,13 +182,13 @@ def train(cfg, max_epochs: Optional[int] = None,
 def validate(cfg, params, opts: RenderOptions, grid, recorder=None, step: int = 0,
              n_images: int = 2, device: Union[str, torch.device] = "cpu"):
     """Render a couple of val images and log their PSNR. Without the val
-    split (the Blender data is not available to the port) it warns and
-    skips, as the JAX package does for a missing split."""
+    split on disk it warns and skips, as the JAX package does, so that a
+    wrong data_root does not train with no sign that validation never ran."""
     val_cfg = cfg.clone()
     val_cfg.test_dataset.split = "val"
     try:
         ds = make_dataset(val_cfg, "test")
-    except (FileNotFoundError, NotImplementedError) as e:
+    except FileNotFoundError as e:
         print(f"WARNING: val split not available ({e}); skipping validation", flush=True)
         return None
     dev = torch.device(device)

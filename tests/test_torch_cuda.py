@@ -50,7 +50,11 @@ Tolerances (as chip_smoke.py states them):
   plain one, so a ReLU mask can flip between them, and where a few points
   carry the gradient (292 of 16,384 coarse samples here) one flip moved a
   leaf by 11% on this test's first run; bf16's own distance from float32
-  bounds flips of that kind.
+  bounds flips of that kind;
+- the evaluation slice: B1 on compacted [cap, 1, 3] batches as on the
+  persistent tiles (largest error within max(5e-2, 2x the float64 plain
+  version's)); a marched block through the kernels at PSNR >= 40 dB from
+  the plain path; the Blender loader's tensors copied to the card exactly.
 """
 import dataclasses
 import math
@@ -63,7 +67,11 @@ import torch
 from nerf_tpu_torch.config import make_cfg
 from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd, hash_gather
 from nerf_tpu_torch.ops import integrate as tint
-from nerf_tpu_torch.render.renderer import RenderOptions, kernel_params, render_rays
+from nerf_tpu_torch.data.blender import BlenderDataset, write_blender_scene
+from nerf_tpu_torch.render import marched, occupancy
+from nerf_tpu_torch.render import renderer as rend
+from nerf_tpu_torch.render.renderer import (RenderOptions, kernel_params, make_density_fn,
+                                            render_rays)
 from nerf_tpu_torch.serve import RenderService, look_at_pose
 from nerf_tpu_torch.render.rays import image_rays
 from nerf_tpu_torch.tools import scatter_variants
@@ -608,3 +616,87 @@ def test_hash_train_step_kernels_match_plain(cuda):
     assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
     for i, (a, b) in enumerate(zip(gk, gp)):
         assert a.dtype == b.dtype and _rel_norm(a, b) <= 1e-2, i
+
+
+# The evaluation slice's shapes: compacted fine batches, marched blocks and
+# Blender data (tolerances as above: B1's per-element and percentile bounds;
+# a rendered image at PSNR >= 40 dB against the plain path; exact copies).
+
+
+def _compaction_inputs(cuda, n_rays, n_samples, keep, seed):
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.uniform(-1.5, 1.5, (n_rays, n_samples, 3)).astype(np.float32))
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    if keep == "ragged":  # 12,345 kept points anywhere: a ragged last tile, unfilled slots
+        mask = np.zeros(n_rays * n_samples, bool)
+        mask[rng.choice(mask.size, 12_345, replace=False)] = True
+        mask = mask.reshape(n_rays, n_samples)
+    else:
+        mask = rng.uniform(size=(n_rays, n_samples)) < keep
+    return pts.to(cuda), torch.from_numpy(d).to(cuda), torch.from_numpy(mask).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,n_rays,keep", [(256, 64, 0.3), (65_536, 1024, 0.5),
+                                             (65_536, 1024, "ragged")])
+def test_fused_kernel_on_compacted_batches(lego, cuda, cap, n_rays, keep):
+    """B1 on query_masked_compacted's [cap, 1, 3] batch (each point its own
+    view direction) against the plain version on the same batch, the
+    largest error held to max(5e-2, 2x that of the plain version summed in
+    float64) as on the persistent tiles (0.093 on 65,536 random points with
+    the flat 5e-2 on this test's first run)."""
+    opts = RenderOptions()
+    kp = kernel_params(lego, opts, cuda)["fine"]
+    pts, d, mask = _compaction_inputs(cuda, n_rays, 192, keep, cap)
+    before = fused_mlp.fused_nerf_eval.launches
+    got = rend.query_masked_compacted(kp, pts, d, opts, mask, cap)
+    assert fused_mlp.fused_nerf_eval.launches == before + 1
+    plain = dataclasses.replace(opts, use_fused_mlp=False)
+    want = rend.query_masked_compacted(kp, pts, d, plain, mask, cap)
+    torch.cuda.synchronize()
+    slot = torch.cumsum(mask.reshape(-1).long(), 0) - 1
+    kept = (mask.reshape(-1) & (slot < cap)).reshape(mask.shape)
+    assert int(kept.sum()) == min(cap, int(mask.sum()))
+    flat = kept.reshape(-1)
+    kp_pts = pts.reshape(-1, 3)[flat]
+    kp_dirs = d[:, None, :].expand(*mask.shape, 3).reshape(-1, 3)[flat]
+    want64 = fused_mlp.fused_nerf_eval_plain(kp, kp_pts, kp_dirs, torch.float64)
+    spread = float(_fused_rel(want64, want[kept]).max())
+    _assert_fused_close(got[kept], want[kept], max(5e-2, 2.0 * spread))
+    assert bool((got[~kept] == want[~kept]).all())  # EMPTY_SIGMA_RAW on both
+
+
+@pytest.mark.cuda
+def test_marched_block_kernels_match_plain(lego, cuda):
+    """One block of 16,384 rays x 16 samples (262,144 points through B1),
+    with ESS, ERT and refocus, against the plain path."""
+    opts = RenderOptions()
+    params = kernel_params(lego, opts, cuda)
+    grid = occupancy.populate_from_density(
+        occupancy.init_grid(64, generator=torch.Generator(device=cuda).manual_seed(1),
+                            device=cuda), make_density_fn(params["coarse"], opts))
+    K = torch.tensor([[180.0, 0, 64], [0, 180.0, 64], [0, 0, 1]], device=cuda)
+    o, d = image_rays(128, 128, K, torch.as_tensor(look_at_pose(0.5, 0.3, 4.0), device=cuda))
+    before = fused_mlp.fused_nerf_eval.launches
+    got = marched.render_rays_marched(params, o.contiguous(), d.contiguous(), opts, grid=grid,
+                                      n_blocks=1, block_samples=16)
+    assert fused_mlp.fused_nerf_eval.launches == before + 1
+    plain = dataclasses.replace(opts, use_fused_mlp=False)
+    want = marched.render_rays_marched(params, o.contiguous(), d.contiguous(), plain, grid=grid,
+                                       n_blocks=1, block_samples=16)
+    assert 0.05 < float(want["acc_map"].mean()) < 0.95
+    assert _psnr(got["rgb_map"], want["rgb_map"]) >= 40.0
+
+
+@pytest.mark.cuda
+def test_blender_tensors_reach_the_card_unchanged(cuda, tmp_path):
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, (3, 20, 24, 4), dtype=np.uint8)
+    poses = np.stack([look_at_pose(t, 0.3, 4.0) for t in (0.0, 1.0, 2.0)])
+    write_blender_scene(str(tmp_path / "lego"), {"train": (imgs, poses)}, 0.6911112070083618)
+    ds = BlenderDataset(data_root=str(tmp_path), split="train", H=20, W=24)
+    u8 = torch.from_numpy(np.round(ds.images * 255).astype(np.uint8))
+    for host in (u8, torch.from_numpy(ds.images), torch.from_numpy(ds.poses),
+                 torch.from_numpy(ds.K)):
+        assert torch.equal(host.to(cuda).cpu(), host)

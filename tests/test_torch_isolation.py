@@ -32,3 +32,19 @@ def test_the_port_has_modules():
 def test_no_jax_and_no_nerf_tpu(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+# the evaluation slice's modules: each is found by the scan above
+EVAL_SLICE = ["nerf_tpu_torch/utils/png.py", "nerf_tpu_torch/utils/profiling.py",
+              "nerf_tpu_torch/data/blender.py", "nerf_tpu_torch/data/samplers.py",
+              "nerf_tpu_torch/eval/metrics.py", "nerf_tpu_torch/eval/background.py",
+              "nerf_tpu_torch/eval/evaluator.py", "nerf_tpu_torch/eval/video.py",
+              "nerf_tpu_torch/render/spiral.py", "nerf_tpu_torch/render/marched.py",
+              "nerf_tpu_torch/run.py", "nerf_tpu_torch/render_novel_views.py",
+              "nerf_tpu_torch/create_video_from_images.py"]
+
+
+@pytest.mark.parametrize("path", EVAL_SLICE)
+def test_the_evaluation_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]

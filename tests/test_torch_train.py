@@ -295,7 +295,7 @@ def test_datasets_and_metrics_match_jax():
     ds, want = make_dataset(cfg, "train"), JaxSynthetic("train", 3, 12, 10, seed=4)
     for k in ("images", "poses", "K"):
         np.testing.assert_array_equal(getattr(ds, k), getattr(want, k), err_msg=k)
-    with pytest.raises(NotImplementedError, match="not in the repository"):
+    with pytest.raises(FileNotFoundError, match="transforms_train.json"):
         make_dataset(make_cfg(LEGO_CFG), "train")
     a, b = ds.images[0], ds.images[1]
     assert metrics.mse(a, b) == jmetrics.mse(a, b) and metrics.psnr(a, b) == jmetrics.psnr(a, b)
