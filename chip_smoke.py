@@ -75,7 +75,10 @@ Phases, each printed with its elapsed seconds:
  13. one hash-grid train step on random colours at 8 orbit poses:
      the scatter-add on the step's own fine indices and cotangents against
      its plain version, and the whole step (loss and every gradient) through
-     the kernels against the plain versions;
+     the kernels against the plain versions, from the trained state (a leaf
+     whose gradient norm is below HASH_SMALL_LEAF of the largest leaf's held
+     in absolute distance, and printed) and from the initial parameters
+     (init_nerf_params: every leaf at the relative bound, the norms printed);
  14. times: a window of warm hash-grid train steps, and the gather and the
      scatter-add on that step's fine batch (3,145,728 rows) beside their
      bounds, their plain versions and one PyTorch call each; the
@@ -113,7 +116,28 @@ Phases, each printed with its elapsed seconds:
      blender, lego's default), the epoch-49 state resumed for one epoch of
      BLENDER_TRAIN_STEPS steps, an ESS rebuild and one validation on the val
      split (its "val psnr" line must appear, a skip warning fails); B1, B2
-     and B3 launched; then --test on the checkpoint it wrote.
+     and B3 launched; then --test on the checkpoint it wrote;
+ 20. B1-f32 and B2-f32 (float32 weights, true float32 on the CUDA cores)
+     against their float32 plain versions on random points at 1, 63, 64,
+     127, 128, 129, 65,553 and 196,608 (the backward with the knife-edge
+     points' cotangents zeroed on both sides), and every ragged prefix
+     launched alone against the same rows of the largest launch;
+ 21. the committed lego checkpoint served with network.dtype float32 at
+     200x200 over HTTP (B1-f32 and B3 launched); its frame against the plain
+     float32 path (>= 40 dB) and against the bf16 frame (printed); B1-f32 on
+     the first tile's fine pass against its plain version and timed;
+ 22. the epoch-49 lego state trained with network.dtype float32 through the
+     trainer's entry point (B1-f32, B2-f32, B3 launched); one step through
+     the kernels against the plain float32 path with the same fine samples
+     and masking; B2-f32 on that step's inputs, and timed on its fine batch;
+ 23. a D=4, W=64, skips [2], 6/2-band NeRF, with and without view
+     directions, trained through the entry point (its MLP in plain PyTorch,
+     B3 launched) and served over HTTP; its frame through B3 against B3's
+     plain version (>= 40 dB);
+ 24. one train_full_image step of lego (bf16) at 200x200 through the entry
+     point (B1, B2, B3 launched, the rays/s line counting H x W); then one
+     such step through the kernels against the plain path at phase 8's
+     bounds, its ms and its peak device memory.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -222,6 +246,25 @@ PEAK_BYTES = 3.35e12
 #   bf16's own distance from float32 bounds such differences, as for the
 #   lego step above. The tables' gradients also differ by their bf16
 #   rounding after float32 sums in other orders (2^-8 relative).
+#   The model trained on noise saturates its density, so the alpha_linear
+#   leaves' gradients are 2.2e-7 to 4.6e-6 of the largest leaf's
+#   (tools/hash_grad_scale.py, H100), and both relative distances there are
+#   noise: the gate failed 2 of 5 runs on them. A leaf below HASH_SMALL_LEAF
+#   (1e-4) of the largest leaf's norm is held to the same bound times the
+#   largest leaf's norm in absolute distance; the same batch from the
+#   initial parameters (alpha_linear bias 0.1, no saturated density) holds
+#   every leaf, alpha_linear's included, at the relative bound.
+# - float32 kernels (B1-f32, B2-f32; nerf_tpu_torch/tools/f32_check.py):
+#   the forward's largest |k - p| / (1 + |p|) over every input checked
+#   within 2x that of the plain version summed in float32 against float64,
+#   as the bf16 gate above; the backward per leaf within 2e-4 max|want| +
+#   1e-6 (dpts, ddirs 1e-3 of their largest), as tests/test_torch_fused_bwd.py,
+#   the cotangents of the points with a ReLU unit within 64 x 2^-24 of its
+#   sum of |terms| of zero (float64 margins) zeroed on both sides: two
+#   correct float32 forwards may decide such a unit either way, and one flip
+#   moves a whole leaf; a float32 train step with the same fine samples and
+#   masking: loss within 1e-5 relative, every leaf as the backward; a prefix
+#   launched alone: exact.
 # - one layer's product through the fused kernel's wgmma path (ring,
 #   descriptors, accumulator layout) against torch.matmul of the same bf16
 #   operands in float32: per element within 2^-14 sum |a w|: float32 sums of
@@ -259,6 +302,10 @@ SIZE = 200
 THETA0, PHI, RADIUS = 0.5, 0.3, 4.0  # the warm-up pose, rendered again in phase 6
 N_TIMED = 32  # requests in the timed serving window, at thetas spread over the orbit
 HASH_STEP_LOSS_REL, HASH_GRAD_REL = 1e-4, 1e-2
+# phase 13: below this fraction of the largest leaf's gradient norm a leaf is
+# held in absolute distance (tools/hash_grad_scale.py, H100: the alpha_linear
+# leaves of the model trained on noise are 2.2e-7 to 4.6e-6 of it)
+HASH_SMALL_LEAF = 1e-4
 HASH_TRAIN_STEPS, HASH_STEP_WINDOW, HASH_N_TIMED = 200, 20, 16
 HASH_ROWS = 3_145_728  # a train step's fine batch: 1024 rays x 192 samples x 16 levels
 # the hash-grid phases override only the dataset and the cadence
@@ -1244,11 +1291,7 @@ def hash_grads_phase(cfg, state, grid, data, dev):
                                kw["sigma_activation"])
                for lbl, (args, kw) in zip(("coarse", "fine"),
                                           sorted(seen_i, key=lambda c: c[0][1].shape[1]))]
-    step = {}
-    for name, o in (("plain", plain), ("again", plain),
-                    ("plain32", dataclasses.replace(plain, compute_dtype="float32"))):
-        gen.set_state(rng)
-        step[name] = loss_and_grads(state.params, ro, rd, tgt, o, grid, gen)
+    step = _hash_plain_steps(state.params, ro, rd, tgt, plain, grid, gen, rng)
     torch.cuda.synchronize()
     check(len(seen_g) == 2 and len(seen_s) == 2,
           f"{len(seen_g)} gathers and {len(seen_s)} scatter-adds in one step, expected 2 and 2")
@@ -1257,25 +1300,75 @@ def hash_grads_phase(cfg, state, grid, data, dev):
     check(fine_s[0].shape[0] == HASH_ROWS, f"fine batch of {fine_s[0].shape[0]} rows")
     scatter_err = max(scatter_errors(f"train step {lbl}", *c) for lbl, c in
                       zip(("coarse", "fine"), sorted(seen_s, key=lambda c: c[0].shape[0])))
+    hash_step_gate("trained", lk, gk, step, small_leaves=True)
+    # the same batch from the initial parameters, where no density saturates
+    # and alpha_linear's gradients do not vanish: every leaf at the relative
+    # bound
+    from nerf_tpu_torch.train.loop import init_nerf_params
+    init = init_nerf_params(torch.Generator().manual_seed(3), opts, dev)
+    gen.set_state(rng)
+    lk0, _, gk0 = loss_and_grads(init, ro, rd, tgt, opts, grid, gen)
+    step0 = _hash_plain_steps(init, ro, rd, tgt, plain, grid, gen, rng)
+    hash_step_gate("initial", lk0, gk0, step0, small_leaves=False)
+    return scatter_err, fine_g, fine_s, b3_rows
+
+
+def _hash_plain_steps(params, ro, rd, tgt, plain, grid, gen, rng):
+    """One step's (loss, stats, grads) through the plain versions, again, and
+    with float32 MLP weights, each from the generator state ``rng``."""
+    from nerf_tpu_torch.train.state import loss_and_grads
+
+    step = {}
+    for name, o in (("plain", plain), ("again", plain),
+                    ("plain32", dataclasses.replace(plain, compute_dtype="float32"))):
+        gen.set_state(rng)
+        step[name] = loss_and_grads(params, ro, rd, tgt, o, grid, gen)
+    return step
+
+
+def hash_step_gate(label, lk, gk, step, small_leaves):
+    """The hash-grid step's gate: loss within HASH_STEP_LOSS_REL; a leaf
+    within max(HASH_GRAD_REL, OVER_BF16_SPREAD x bf16's own spread) in
+    relative norm. With ``small_leaves``, a leaf whose plain gradient norm is
+    below HASH_SMALL_LEAF of the largest leaf's is held to that bound times
+    the largest leaf's norm in absolute distance instead (its relative
+    distance is noise); those leaves are printed with their norms."""
     (lp, _, gp), (_, _, g32) = step["plain"], step["plain32"]
     loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
-    ratios = []
+    norms = [float(b.double().norm()) for b in gp]
+    top = max(norms)
+    ratios, small = [], []
     for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
         e, spread = _rel(a, b)[0], _rel(b, c)[0]
-        ratios.append((e / max(HASH_GRAD_REL, OVER_BF16_SPREAD * spread), i, e, spread))
-    r, i, e, spread = max(ratios)
-    errs = sorted(x[2] for x in ratios)
+        bound = max(HASH_GRAD_REL, OVER_BF16_SPREAD * spread)
+        if small_leaves and norms[i] < HASH_SMALL_LEAF * top:
+            dist = float((a.double() - b.double()).norm())
+            small.append(f"leaf {i}: norm {norms[i]:.3g}, distance {dist:.3g} (tol "
+                         f"{bound * top:.3g})")
+            ratios.append((dist / (bound * top), i, e, spread))
+        else:
+            ratios.append((e / bound, i, e, spread))
+    held = [x for x in ratios if not (small_leaves and norms[x[1]] < HASH_SMALL_LEAF * top)]
+    r, i, e, spread = max(held)
+    errs = sorted(x[2] for x in held)
     again = _rel(step["again"][2][i], gp[i])[0]
-    log(f"hash train step, kernels vs plain on one batch: loss {float(lk):.7f} vs "
-        f"{float(lp):.7f} (rel {loss_rel:.3g}, tol {HASH_STEP_LOSS_REL}); gradients of "
-        f"{len(gk)} leaves: relative norm err median {errs[len(errs) // 2]:.4g}, max "
-        f"{errs[-1]:.4g}; the tables' (16, 33): {ratios[16][2]:.4g}, {ratios[33][2]:.4g}; worst "
-        f"against bf16's own spread: leaf {i}, {e:.4g} against {spread:.4g} (tol "
-        f"max({HASH_GRAD_REL}, {OVER_BF16_SPREAD} x)); the plain path run again: {again:.4g}")
+    log(f"hash train step ({label} parameters), kernels vs plain on one batch: loss "
+        f"{float(lk):.7f} vs {float(lp):.7f} (rel {loss_rel:.3g}, tol {HASH_STEP_LOSS_REL}); "
+        f"gradients of {len(held)} of {len(gk)} leaves in relative norm: median "
+        f"{errs[len(errs) // 2]:.4g}, max {errs[-1]:.4g}; the tables' (16, 33): "
+        f"{ratios[16][2]:.4g}, {ratios[33][2]:.4g}; worst against bf16's own spread: leaf {i}, "
+        f"{e:.4g} against {spread:.4g} (tol max({HASH_GRAD_REL}, {OVER_BF16_SPREAD} x)); the "
+        f"plain path run again: {again:.4g}; largest leaf norm {top:.4g}")
+    if small_leaves:
+        log(f"hash train step ({label}): {len(small)} leaves below {HASH_SMALL_LEAF} x the "
+            f"largest norm, held in absolute distance to the bound x {top:.4g}: "
+            + ("; ".join(small) or "none"))
+    else:
+        log(f"hash train step ({label}): leaf norms " + ", ".join(f"{v:.3g}" for v in norms))
     check(math.isfinite(float(lk)) and loss_rel <= HASH_STEP_LOSS_REL,
-          "hash train step loss disagrees")
-    check(r <= 1.0, "hash train step gradients disagree")
-    return scatter_err, fine_g, fine_s, b3_rows
+          f"hash train step loss disagrees ({label} parameters)")
+    check(max(x[0] for x in ratios) <= 1.0,
+          f"hash train step gradients disagree ({label} parameters)")
 
 
 def hash_times_phase(cfg, state, grid, data, dev, fine_g, fine_s):
@@ -1762,6 +1855,342 @@ def blender_train_phase(root, work, scene_dir, counters):
     return {"step_ms": step_ms, "val_psnr": float(val[0])}
 
 
+# The float32 slice (phases 20-24): B1-f32 and B2-f32 (network.dtype
+# float32), frequency NeRFs of another shape, whole-image training.
+F32_SIZES = RAGGED_SIZES + (196_608,)
+F32_N_TIMED = 8  # float32 requests in the timed window
+F32_TRAIN_STEPS = 10
+F32_TRAIN_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "10",
+                       "train_dataset.H", "800", "train_dataset.W", "800",
+                       "network.dtype", "float32", "train.epoch", "51",
+                       "ep_iter", str(F32_TRAIN_STEPS), "log_interval", "5", "scan_chunk", "5"]
+SMALL_NERF = ["network.nerf.D", "4", "network.nerf.W", "64", "network.nerf.skips", "[2]",
+              "network.xyz_encoder.freq", "6", "network.dir_encoder.freq", "2"]
+SMALL_TRAIN_STEPS = 100
+FULL_IMAGE = 200  # the whole-image step's frame, H = W
+
+
+class _GradSpy:
+    """An optimizer that keeps the gradients it is handed, then steps."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, None
+
+    def step(self, leaves, grads, opt_state):
+        self.grads = [g.clone() for g in grads]
+        self.tx.step(leaves, grads, opt_state)
+
+
+def _f32_counters():
+    from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd, integrate as tint
+
+    return {"fused_nerf_eval_f32": fused_mlp.fused_nerf_eval_f32,
+            "fused_nerf_bwd_f32": fused_mlp_bwd.fused_nerf_bwd_f32, "integrate": tint.integrate}
+
+
+def f32_random_phase(params, dev):
+    """Phase 20: B1-f32 and B2-f32 against their float32 plain versions on
+    random points at the ragged sizes and 196,608; every ragged prefix
+    launched alone equals the same rows of the largest launch (raw, dpts,
+    ddirs). Returns (the forward's errors, B2-f32's largest |err|)."""
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd as fb
+    from nerf_tpu_torch.tools import f32_check
+
+    kp = {k: v.to(dev) for k, v in
+          fused_mlp.repack_params(params["fine"], weight_dtype=torch.float32).items()}
+    gen = torch.Generator(device=dev).manual_seed(11)
+    fwd_errs, bwd_abs = [], 0.0
+    for n in F32_SIZES:
+        pts = torch.rand((n, 3), generator=gen, device=dev) * 3.0 - 1.5
+        d = torch.randn((n, 3), generator=gen, device=dev)
+        d = d / d.norm(dim=-1, keepdim=True)
+        g = torch.randn((n, 4), generator=gen, device=dev)
+        fwd_errs.append(f32_check.forward_errors(kp, pts, d))
+        b = f32_check.backward_errors(kp, pts, d, g)
+        torch.cuda.synchronize()
+        log(f"B1-f32 on {n} random pts: rel err {fwd_errs[-1][0]:.3g} (the plain version in "
+            f"float32 against float64: {fwd_errs[-1][1]:.3g}); B2-f32: worst {b['leaf']} at "
+            f"{b['worst']:.3g} of its bound, {b['masked']} knife-edge points zeroed")
+        check(b["worst"] <= 1.0, f"B2-f32 disagrees with its plain version on {n} points")
+        bwd_abs = max(bwd_abs, b["abs"])
+    full = fused_mlp.fused_nerf_eval(kp, pts, d)
+    whole = fb.fused_nerf_bwd(kp, pts, d, g)
+    for m in RAGGED_SIZES:
+        sl = [t[:m].contiguous() for t in (pts, d, g)]
+        check(bool(torch.equal(fused_mlp.fused_nerf_eval(kp, *sl[:2]), full[:m])),
+              f"B1-f32 on {m} points differs from the same rows of a launch of {n}")
+        part = fb.fused_nerf_bwd(kp, *sl)
+        check(bool(torch.equal(part[1], whole[1][:m]) and torch.equal(part[2], whole[2][:m])),
+              f"B2-f32's input gradients on {m} points differ from a launch of {n}")
+    log(f"B1-f32 and B2-f32 alone on {', '.join(map(str, RAGGED_SIZES))} points: exactly the "
+        f"rows of the {n}-point launch")
+    return fwd_errs, bwd_abs
+
+
+def f32_serve_phase(root, dev, bf16_service, fwd_errs):
+    """Phase 21: the committed lego checkpoint served with network.dtype
+    float32 through B1-f32 and B3 over HTTP; its frame against the plain
+    float32 path (>= 40 dB) and against the bf16 frame (printed); B1-f32 on
+    the first render tile's fine pass against its plain version and timed,
+    beside its bound, the plain version and a float32 torch.matmul chain."""
+    import torch
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp, integrate
+    from nerf_tpu_torch.tools import f32_check
+
+    cfg = make_cfg(os.path.join(root, "configs/nerf/lego.yaml"),
+                   ["trained_model_dir", os.path.join(root, "checkpoints/nerf/lego/nerf"),
+                    "network.dtype", "float32"])
+    service, _, launches, request_ms = serve_phase(
+        dev, cfg, {"fused_nerf_eval_f32": fused_mlp.fused_nerf_eval_f32,
+                   "integrate": integrate.integrate}, n_timed=F32_N_TIMED)
+    check(service.params["fine"]["wbuf"].dtype == torch.float32, "the service's weights")
+    plain_phase(service)
+    rgb32 = service.render(THETA0, PHI, RADIUS)
+    rgb16 = bf16_service.render(THETA0, PHI, RADIUS)
+    mse = float(torch.mean((rgb32 - rgb16) ** 2))
+    log(f"float32 frame against the bf16 frame: PSNR {-10 * math.log10(max(mse, 1e-20)):.2f} dB")
+    with _spy(fused_mlp, "fused_nerf_eval") as calls:
+        service.render(THETA0, PHI, RADIUS)
+    kp, pts, dirs = next(a[:3] for a, _ in calls if a[1].shape[0] == 8192 * 192)
+    fwd_errs.append(f32_check.forward_errors(kp, pts, dirs))
+    rel, rel64 = max(e[0] for e in fwd_errs), max(e[1] for e in fwd_errs)
+    log(f"B1-f32 on the first tile's fine pass, {pts.shape[0]} pts: rel err "
+        f"{fwd_errs[-1][0]:.3g}; over every input: {rel:.4g} against the plain version in "
+        f"float32 vs float64 {rel64:.4g} (tol {f32_check.FWD_OVER_PLAIN64} x)")
+    check(rel <= f32_check.FWD_OVER_PLAIN64 * rel64,
+          "B1-f32's largest error exceeds the plain version's own spread")
+    n = pts.shape[0]
+    out = torch.empty((n, 4), device=dev)
+    lib, stream = fused_mlp._lib_f32(), torch.cuda.current_stream().cuda_stream
+    args = [t.data_ptr() for t in (pts, dirs, kp["wbuf"], kp["bbuf"], out)]
+    ms = time_ms(lambda: lib.launch_fused_nerf_f32(*args, n, stream), reps=5)
+    plain_ms = time_ms(lambda: fused_mlp.fused_nerf_eval_plain(kp, pts, dirs), reps=2)
+    chain_ms = time_ms(lambda: f32_check.matmul_chain_f32(kp, pts, dirs), reps=2)
+    bound = f32_check.fwd_bound_ms(n)
+    log(f"B1-f32 first tile fine, {n} pts: {ms:.4f} ms ({2.0 * MACS_PER_POINT * n / ms / 1e9:.1f} "
+        f"TFLOP/s, {bound / ms:.3f} of the bound {bound:.4f} ms at 67 TFLOP/s float32), plain "
+        f"{plain_ms:.4f} ms; yardstick: a chain of float32 torch.matmul calls (full float32, "
+        f"allow_tf32 off) {chain_ms:.4f} ms; float32 request {request_ms:.2f} ms "
+        f"(launches {launches})")
+    return {"name": "fused_nerf_eval_f32", "route": "cuda",
+            "source": "nerf_tpu_torch/csrc/fused_mlp_f32.cu",
+            "replaces": "nerf_tpu/ops/fused_mlp.py:129", "max_abs_err": max(
+                e[2] for e in fwd_errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": None}
+
+
+def f32_train_phase(root, work, data, grid, dev):
+    """Phase 22: the epoch-49 lego state resumed with network.dtype float32
+    through the trainer's entry point for F32_TRAIN_STEPS steps (B1-f32,
+    B2-f32, B3 launched); one step on the model's own renders through the
+    kernels against the plain float32 path with the same fine samples and
+    the knife-edge points masked (loss within 1e-5 relative, every leaf
+    within B2-f32's bound); B2-f32 on that step's coarse and fine inputs
+    against its plain version, and timed on the fine batch with its four
+    launches, its bound, the plain version and a float32 torch.matmul
+    chain's autograd. Returns (the kernel's entry, the path's launches)."""
+    import torch
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp_bwd as fb
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.tools import f32_check
+    from nerf_tpu_torch.train.checkpoint import load_checkpoint
+    from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch
+
+    model_dir = os.path.join(work, "f32_model")
+    os.makedirs(model_dir)
+    src = os.path.join(root, "checkpoints/nerf/lego/nerf")
+    for f in ("latest.npz", "latest.json"):
+        shutil.copy(os.path.join(src, f), model_dir)
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    opts_list = [*F32_TRAIN_OVERRIDES, "trained_model_dir", model_dir,
+                 "record_dir", os.path.join(work, "f32_record")]
+    state, _, launches, text, secs = _drive_trainer(cfg_file, opts_list, _f32_counters())
+    losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
+    log(f"float32 train entry point: {secs:.2f} s ({F32_TRAIN_STEPS} steps, checkpoint); "
+        f"launches {launches}; losses {losses}")
+    check(all(v > 0 for v in launches.values()), "a float32 kernel was not launched by the "
+          "train path")
+    check(len(losses) == F32_TRAIN_STEPS // 5 and all(math.isfinite(v) for v in losses),
+          f"logged losses {losses}")
+    cfg = make_cfg(cfg_file, opts_list)
+    opts = RenderOptions.from_cfg(cfg)
+    state = load_checkpoint(src, state)[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ro, rd, tgt = sample_ray_batch(gen, *data, int(cfg.task_arg.N_rays))
+    rng = gen.get_state()
+    with _spy(fb, "fused_nerf_bwd") as calls:
+        loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen)
+    seen = sorted((a[:4] for a, _ in calls), key=lambda c: c[1].shape[0])
+    check(len(seen) == 2, f"{len(seen)} backward calls in one step, expected 2")
+    gen.set_state(rng)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    (lk, gk), (lp, gp) = f32_check.step_pair(state.params, ro, rd, tgt, opts, grid, gen, plain)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst = max((float((a - b).abs().max()) / (f32_check.BWD_LEAF_REL * float(b.abs().max())
+                                               + f32_check.BWD_LEAF_ABS), i)
+                for i, (a, b) in enumerate(zip(gk, gp)))
+    log(f"float32 train step, kernels vs plain (same fine samples, knife-edge points "
+        f"masked): loss {float(lk):.7f} vs {float(lp):.7f} (rel {loss_rel:.3g}, tol 1e-5); "
+        f"worst gradient leaf {worst[1]} at {worst[0]:.3g} of its bound")
+    check(loss_rel <= 1e-5, "float32 train step loss disagrees")
+    check(worst[0] <= 1.0, "float32 train step gradients disagree")
+    bwd_abs = 0.0
+    for label, (kp, pts, dirs, g) in zip(("coarse", "fine"), seen):
+        b = f32_check.backward_errors(kp, pts, dirs, g, input_grads=False)
+        bwd_abs = max(bwd_abs, b["abs"])
+        log(f"B2-f32 on the step's {label} inputs, {pts.shape[0]} pts: worst {b['leaf']} at "
+            f"{b['worst']:.3g} of its bound, {b['masked']} knife-edge points zeroed")
+        check(b["worst"] <= 1.0, f"B2-f32 disagrees with its plain version on the {label} batch")
+    kp, pts, dirs, g = seen[1]
+    full = fb.launch_f32(kp, pts, dirs, g, input_grads=False)
+    lib = fb._lib_f32()[0]
+    times = {}
+    for name, phases in (("all", fb.F32_PHASES_ALL), ("forward + stash", 1), ("chain", 2),
+                         ("weight gradients", 4), ("reduce", 8)):
+        args = list(full["args"])
+        args[-2] = phases
+        times[name] = time_ms(lambda: lib.launch_fused_nerf_bwd_f32(*args), reps=3)
+    plain_ms = time_ms(lambda: fb.fused_nerf_bwd_plain(kp, pts, dirs, g, input_grads=False),
+                       reps=2)
+    chain_ms = time_ms(lambda: f32_check.matmul_chain_f32_bwd(kp, pts, dirs, g), reps=2)
+    n = pts.shape[0]
+    bound = f32_check.bwd_bound_ms(n)
+    log(f"B2-f32 on the step's fine batch, {n} pts: {times['all']:.4f} ms ({bound / times['all']:.3f} "
+        f"of the bound {bound:.4f} ms at 67 TFLOP/s float32); launches "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items() if k != "all")
+        + f" ms; plain {plain_ms:.4f} ms; yardstick: a float32 torch.matmul chain and its "
+        f"autograd (full float32) {chain_ms:.4f} ms; scratch "
+        f"{(full['stash_slabs'].numel() + full['gbuf_slabs'].numel()) * 4 / 2**30:.2f} GiB")
+    return {"name": "fused_nerf_bwd_f32", "route": "cuda",
+            "source": "nerf_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
+            "replaces": "nerf_tpu/ops/fused_mlp_bwd.py:43", "max_abs_err": bwd_abs,
+            "ms": times["all"], "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations", "library_ms": None}, launches
+
+
+def small_nerf_phase(root, work, dev):
+    """Phase 23: a frequency NeRF of another shape (D=4, W=64, skips [2],
+    6/2 bands; its MLP in plain PyTorch, as JAX's XLA path), with and
+    without view directions: SMALL_TRAIN_STEPS steps through the trainer's
+    entry point from its initial weights, then its checkpoint served over
+    HTTP; the frame through B3 against B3's plain version (>= 40 dB)."""
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import integrate
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    for vd in (True, False):
+        tag = "with" if vd else "without"
+        opts = ["train_dataset_module", "synthetic", "train_dataset.n_images", "4",
+                "train_dataset.H", "100", "train_dataset.W", "100", *SMALL_NERF,
+                "task_arg.use_viewdirs", str(vd), "train.epoch", "1",
+                "ep_iter", str(SMALL_TRAIN_STEPS), "grid_rebuild_ep", "1", "log_interval", "50",
+                "trained_model_dir", os.path.join(work, f"small_{tag}"),
+                "record_dir", os.path.join(work, f"small_{tag}_record")]
+        _, _, launches, text, secs = _drive_trainer(cfg_file, opts,
+                                                    {"integrate": integrate.integrate})
+        losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
+        log(f"D=4 W=64 NeRF {tag} view directions: trained {SMALL_TRAIN_STEPS} steps in "
+            f"{secs:.2f} s, losses {losses}; launches {launches}")
+        check(launches["integrate"] > 0 and losses and all(math.isfinite(v) for v in losses),
+              f"the D=4 W=64 NeRF {tag} view directions did not train through B3")
+        service, _, slaunches, ms = serve_phase(dev, make_cfg(cfg_file, opts),
+                                                {"integrate": integrate.integrate}, n_timed=4)
+        log(f"D=4 W=64 NeRF {tag} view directions served: {ms:.2f} ms per request")
+        plain_phase(service)
+
+
+def full_image_phase(root, work, service, dev):
+    """Phase 24: train_full_image with the lego model (bf16): one whole-image
+    step at FULL_IMAGE x FULL_IMAGE through the trainer's entry point (B1,
+    B2, B3 launched; the rays/s line counts H x W rays); then one such step
+    from the epoch-49 state on the model's own renders through the kernels
+    against the plain path and the plain path with float32 weights, at
+    phase 8's bounds; its ms per step and its peak device memory."""
+    import torch
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.checkpoint import load_checkpoint
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import train_step_full_image
+
+    model_dir = os.path.join(work, "full_image_model")
+    os.makedirs(model_dir)
+    src = os.path.join(root, "checkpoints/nerf/lego/nerf")
+    for f in ("latest.npz", "latest.json"):
+        shutil.copy(os.path.join(src, f), model_dir)
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    opts_list = ["train_dataset_module", "synthetic", "train_dataset.n_images", "4",
+                 "train_dataset.H", str(FULL_IMAGE), "train_dataset.W", str(FULL_IMAGE),
+                 "train_full_image", "True", "train.epoch", "51", "ep_iter", "1",
+                 "grid_rebuild_ep", "100", "trained_model_dir", model_dir,
+                 "record_dir", os.path.join(work, "full_image_record")]
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, _, launches, text, secs = _drive_trainer(cfg_file, opts_list, _counters())
+    entry_peak = torch.cuda.max_memory_allocated(dev)
+    rate = re.search(r"epoch 50 done in (\S+)s  \((\S+) train rays/s\)", text)
+    check(rate is not None, "no epoch line")
+    line_rate = float(rate.group(2).replace(",", ""))
+    # the line's seconds are rounded to 0.01: the rates H x W rays a step
+    # could give over them, against N_rays' (1024) which it must not count
+    secs_line = float(rate.group(1))
+    want = FULL_IMAGE * FULL_IMAGE / secs_line
+    lo = FULL_IMAGE * FULL_IMAGE / (secs_line + 0.005)
+    hi = FULL_IMAGE * FULL_IMAGE / max(secs_line - 0.005, 1e-9)
+    log(f"train_full_image entry point, one {FULL_IMAGE}x{FULL_IMAGE} step: {secs:.2f} s in "
+        f"all, epoch line {rate.group(1)} s and {rate.group(2)} train rays/s (H x W over its "
+        f"seconds: {want:,.0f}); launches {launches}; peak device memory "
+        f"{entry_peak / 2**30:.2f} GiB")
+    check(all(v > 0 for v in launches.values()), "a kernel was not launched by the "
+          "whole-image step")
+    check(lo - 1 <= line_rate <= hi + 1, "the rays/s line does not count H x W rays")
+    cfg = make_cfg(cfg_file, opts_list)
+    opts = RenderOptions.from_cfg(cfg)
+    base = load_checkpoint(src, state)[0]
+    imgs, poses, K = _model_views(service)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    runs = {}
+    for name, o in (("warm-up", opts), ("kernel", opts), ("plain", plain),
+                    ("plain32", dataclasses.replace(plain, compute_dtype="float32"))):
+        st = _clone_state(base)
+        spy = _GradSpy(make_optimizer(cfg))
+        gen = torch.Generator(device=dev).manual_seed(4)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        stats = train_step_full_image(st, imgs, poses, K, spy, o, FULL_IMAGE, FULL_IMAGE,
+                                      tile=o.tile_rays, grid=service.grid, generator=gen)
+        torch.cuda.synchronize()
+        runs[name] = (stats, spy.grads, time.perf_counter() - t,
+                      torch.cuda.max_memory_allocated(dev) - before, before)
+    (sk, gk, step_s, peak, before), (sp, gp, *_), (_, g32, *_) = (
+        runs[k] for k in ("kernel", "plain", "plain32"))
+    loss_rel = abs(float(sk["loss"]) - float(sp["loss"])) / abs(float(sp["loss"]))
+    ratios = []
+    for i, (a, b, c) in enumerate(zip(gk, gp, g32)):
+        e, spread = _rel(a, b)[0], _rel(b, c)[0]
+        ratios.append((e / max(BWD_FRO_REL, OVER_BF16_SPREAD * spread), i, e, spread))
+    r, i, e, spread = max(ratios)
+    log(f"whole-image step, kernels vs plain: loss {float(sk['loss']):.7f} vs "
+        f"{float(sp['loss']):.7f} (rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); worst gradient "
+        f"leaf {i}: {e:.4g} against bf16's own {spread:.4g} (tol max({BWD_FRO_REL}, "
+        f"{OVER_BF16_SPREAD} x))")
+    check(math.isfinite(float(sk["loss"])) and loss_rel <= STEP_LOSS_REL,
+          "whole-image step loss disagrees")
+    check(r <= 1.0, "whole-image step gradients disagree")
+    log(f"whole-image step at {FULL_IMAGE}x{FULL_IMAGE}, tiles of {opts.tile_rays} rays: "
+        f"{step_s * 1e3:.1f} ms ({FULL_IMAGE * FULL_IMAGE / step_s:,.0f} rays/s, H x W "
+        f"counted); the step's peak device memory {peak / 2**30:.2f} GiB above the "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f} GiB card's "
+        f"{before / 2**30:.2f} GiB in use before it")
+    return {"step_ms": step_s * 1e3, "peak_gib": peak / 2**30}
+
+
+
 def main() -> int:
     import torch
 
@@ -1854,6 +2283,7 @@ def main() -> int:
 def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
     import torch
     from nerf_tpu_torch.ops import fused_mlp, integrate
+    from nerf_tpu_torch.train.checkpoint import load_params
 
     log("phase 11: train the hash-grid model through the entry point")
     hcfg, hstate, _, hash_launches = hash_train_phase(root, work)
@@ -1914,7 +2344,27 @@ def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
         f"vs dense {compaction['dense_ms']:.1f} ms; hierarchical {march['hier_ms']:.1f} ms "
         f"({march['hier_psnr']:.2f} dB) vs marched {march['march_ms']:.1f} ms "
         f"({march['march_psnr']:.2f} dB); Blender-data train step {blender['step_ms']:.2f} ms")
-    log("phase 20: done")
+    log("phase 20: B1-f32 and B2-f32 against their float32 plain versions on random inputs")
+    params = load_params(os.path.join(root, "checkpoints/nerf/lego/nerf"))
+    fwd_errs, bwd_abs = f32_random_phase(params, dev)
+    log("phase 21: serve the lego checkpoint with float32 weights")
+    b1_f32 = f32_serve_phase(root, dev, service, fwd_errs)
+    log("phase 22: train lego with float32 weights")
+    b2_f32, f32_launches = f32_train_phase(root, work, _model_views(service), service.grid, dev)
+    b2_f32["max_abs_err"] = max(b2_f32["max_abs_err"], bwd_abs)
+    for k in (b1_f32, b2_f32):
+        k["launches"] = f32_launches[k["name"]]
+    kernels += [b1_f32, b2_f32]
+    log("phase 23: frequency NeRFs of another shape (D=4, W=64), with and without view "
+        "directions")
+    small_nerf_phase(root, work, dev)
+    log("phase 24: one whole-image train step (train_full_image)")
+    full = full_image_phase(root, work, service, dev)
+    log(f"float32 slice on {smi}: B1-f32 {b1_f32['ms']:.3f} ms on a lego fine tile (bound "
+        f"{b1_f32['bound_ms']:.3f}), B2-f32 {b2_f32['ms']:.3f} ms on a step's fine batch (bound "
+        f"{b2_f32['bound_ms']:.3f}); whole-image step {full['step_ms']:.1f} ms at "
+        f"{FULL_IMAGE}x{FULL_IMAGE}, peak {full['peak_gib']:.2f} GiB")
+    log("phase 25: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(smi, flush=True)

@@ -2,7 +2,8 @@
 
 8x256 ``pts_linears`` with the embedded input concatenated after layer 4's
 ReLU, and the view-direction head (alpha_linear 256->1, feature_linear
-256->256, views_linears [256+27 -> 128], rgb_linear 128->3). The output is
+256->256, views_linears [256+27 -> 128], rgb_linear 128->3); without view
+directions one ``output_linear`` W->4 instead. The output is
 [rgb_raw(3), sigma_raw(1)].
 
 The layers are ``nn.Linear`` (weights [out, in]). The bridge to the JAX
@@ -42,16 +43,20 @@ def dense(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 class NeRFMLP(nn.Module):
     def __init__(self, D: int = 8, W: int = 256, input_ch: int = 63,
                  input_ch_views: int = 27, skips: Sequence[int] = (4,),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, use_viewdirs: bool = True):
         super().__init__()
         self.input_ch = input_ch
         self.skips = tuple(skips)
+        self.use_viewdirs = use_viewdirs
         layers = []
         in_dim = input_ch
         for i in range(D):
             layers.append(_linear(in_dim, W, generator))
             in_dim = W + input_ch if i in self.skips else W
         self.pts_linears = nn.ModuleList(layers)
+        if not use_viewdirs:
+            self.output_linear = _linear(W, 4, generator)
+            return
         self.feature_linear = _linear(W, W, generator)
         self.alpha_linear = _linear(W, 1, generator)
         self.views_linears = nn.ModuleList([_linear(input_ch_views + W, W // 2, generator)])
@@ -70,6 +75,8 @@ class NeRFMLP(nn.Module):
             h = torch.relu(lin(layer, h))
             if i in self.skips:
                 h = torch.cat([input_pts, h], dim=-1)
+        if not self.use_viewdirs:
+            return lin(self.output_linear, h)
         alpha = lin(self.alpha_linear, h)
         h = torch.cat([lin(self.feature_linear, h), input_views], dim=-1)
         for layer in self.views_linears:
@@ -81,6 +88,9 @@ class NeRFMLP(nn.Module):
         def t(layer):
             return {"w": layer.weight.detach().t(), "b": layer.bias.detach()}
 
+        if not self.use_viewdirs:
+            return {"pts_linears": [t(l) for l in self.pts_linears],
+                    "output_linear": t(self.output_linear)}
         return {
             "pts_linears": [t(l) for l in self.pts_linears],
             "feature_linear": t(self.feature_linear),
@@ -95,9 +105,10 @@ class NeRFMLP(nn.Module):
         pts = tree["pts_linears"]
         W = np.shape(pts[0]["w"])[1]
         input_ch = np.shape(pts[0]["w"])[0]
-        input_ch_views = np.shape(tree["views_linears"][0]["w"])[0] - W
+        use_viewdirs = "views_linears" in tree
+        input_ch_views = np.shape(tree["views_linears"][0]["w"])[0] - W if use_viewdirs else 0
         model = cls(D=len(pts), W=W, input_ch=input_ch,
-                    input_ch_views=input_ch_views, skips=skips)
+                    input_ch_views=input_ch_views, skips=skips, use_viewdirs=use_viewdirs)
 
         def load(layer, leaf):
             w = torch.tensor(np.asarray(leaf["w"], np.float32))
@@ -111,6 +122,9 @@ class NeRFMLP(nn.Module):
 
         for layer, leaf in zip(model.pts_linears, pts):
             load(layer, leaf)
+        if not use_viewdirs:
+            load(model.output_linear, tree["output_linear"])
+            return model
         for name in ("feature_linear", "alpha_linear", "rgb_linear"):
             load(getattr(model, name), tree[name])
         for layer, leaf in zip(model.views_linears, tree["views_linears"]):
@@ -119,14 +133,15 @@ class NeRFMLP(nn.Module):
 
 
 def apply_nerf_mlp(params: Mapping[str, Any], x: torch.Tensor, input_ch: int,
-                   skips: Sequence[int] = (4,), compute_dtype: torch.dtype = torch.float32
-                   ) -> torch.Tensor:
+                   skips: Sequence[int] = (4,), compute_dtype: torch.dtype = torch.float32,
+                   use_viewdirs: bool = True) -> torch.Tensor:
     """The counterpart of ``nerf_tpu``'s ``apply_nerf_mlp`` on a JAX-layout
     tree (weights [in, out]) of any depth, width and skips, with the view
-    head: x [..., input_ch + input_ch_views] -> [..., 4] float32. Each product
-    rounds its operands to ``compute_dtype`` and sums in float32 (``dense``).
-    The hash-grid model runs its MLP here: the JAX package leaves it to XLA,
-    not to a Pallas kernel."""
+    head (or, without view directions, ``output_linear`` [W, 4]): x [...,
+    input_ch + input_ch_views] -> [..., 4] float32. Each product rounds its
+    operands to ``compute_dtype`` and sums in float32 (``dense``). The
+    hash-grid model and every frequency NeRF but the lego shape run their
+    MLP here: the JAX package leaves them to XLA, not to a Pallas kernel."""
     def lin(p, h):
         return dense(h, p["w"].t(), p["b"], compute_dtype)
 
@@ -136,6 +151,8 @@ def apply_nerf_mlp(params: Mapping[str, Any], x: torch.Tensor, input_ch: int,
         h = torch.relu(lin(layer, h))
         if i in skips:
             h = torch.cat([input_pts, h], dim=-1)
+    if not use_viewdirs:
+        return lin(params["output_linear"], h)
     alpha = lin(params["alpha_linear"], h)
     h = torch.cat([lin(params["feature_linear"], h), input_views], dim=-1)
     for layer in params["views_linears"]:
@@ -145,12 +162,13 @@ def apply_nerf_mlp(params: Mapping[str, Any], x: torch.Tensor, input_ch: int,
 
 def init_nerf_mlp(generator: Optional[torch.Generator] = None, D: int = 8, W: int = 256,
                   input_ch: int = 63, input_ch_views: int = 27, skips: Sequence[int] = (4,),
-                  device: Optional[torch.device] = None) -> Tree:
+                  device: Optional[torch.device] = None, use_viewdirs: bool = True) -> Tree:
     """The counterpart of ``nerf_tpu``'s ``init_nerf_mlp``: a JAX-layout tree
     (weights [in, out]) with U(+-1/sqrt(fan_in)) weights and biases drawn from
-    ``generator``; float32 contiguous leaves on ``device`` that require grad."""
+    ``generator``; float32 contiguous leaves on ``device`` that require grad.
+    Without view directions the heads are one ``output_linear`` [W, 4]."""
     mlp = NeRFMLP(D=D, W=W, input_ch=input_ch, input_ch_views=input_ch_views, skips=skips,
-                  generator=generator)
+                  generator=generator, use_viewdirs=use_viewdirs)
 
     def leaf(x):
         return x.contiguous().to(device).requires_grad_(True)

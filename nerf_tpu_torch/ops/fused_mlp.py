@@ -157,13 +157,36 @@ def unpack_bwd_stream(wpack_bwd: torch.Tensor):
             for i in range(len(STREAM_LAYERS))]
 
 
+def pack_bwd_rows(wbuf: torch.Tensor) -> torch.Tensor:
+    """The float32 backward chain's weights (``csrc/fused_mlp_bwd_f32.cu``):
+    for each part of ``BWD_STREAM``, rows r0..r0+rows of the layer's [K, N]
+    matrix transposed, [N, rows] row-major. Same size as
+    ``pack_bwd_stream``'s."""
+    mats = _stream_matrices(wbuf)
+    return torch.cat([mats[i][r0: r0 + rows].T.reshape(-1) for i, r0, rows in BWD_STREAM])
+
+
+def unpack_bwd_rows(wbuf_t: torch.Tensor):
+    """The inverse of ``pack_bwd_rows``: the ten [K, N] matrices."""
+    parts, off = {}, 0
+    for i, r0, rows in BWD_STREAM:
+        n = STREAM_LAYERS[i][1]
+        parts[(i, r0)] = wbuf_t[off: off + n * rows].reshape(n, rows).T
+        off += n * rows
+    return [torch.cat([parts[key] for key in sorted(k for k in parts if k[0] == i)])
+            for i in range(len(STREAM_LAYERS))]
+
+
 def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 4,
                   weight_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """JAX-layout MLP tree (weights [in, out], e.g. ``NeRFMLP.to_tree()``) ->
     the kernel's weight dict: the entries of ``nerf_tpu``'s ``repack_params``
-    plus ``wbuf``/``bbuf``, the flat buffers the CUDA kernels read,
-    ``wpack``, the forward kernel's weight stream (``pack_weight_stream``),
-    and ``wpack_bwd``, the backward chain's (``pack_bwd_stream``)."""
+    plus ``wbuf``/``bbuf``, the flat buffers the CUDA kernels read. bf16
+    weights add ``wpack``, the forward kernel's weight stream
+    (``pack_weight_stream``), and ``wpack_bwd``, the backward chain's
+    (``pack_bwd_stream``); float32 weights add ``wbuf_t``, the float32
+    backward chain's (``pack_bwd_rows``): the float32 forward reads
+    ``wbuf`` as it is."""
     d = 3
     perm_x = torch.as_tensor(_emb_perm(d, xyz_freqs))
     perm_d = torch.as_tensor(_emb_perm(d, dir_freqs))
@@ -205,8 +228,11 @@ def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 
         kp[f"w{i}"] = wd(pl_[i]["w"])
         kp[f"b{i}"] = bias(pl_[i]["b"])
     kp["wbuf"], kp["bbuf"] = _pack_kernel_buffers(kp)
-    kp["wpack"] = pack_weight_stream(kp["wbuf"])
-    kp["wpack_bwd"] = pack_bwd_stream(kp["wbuf"])
+    if weight_dtype == torch.float32:
+        kp["wbuf_t"] = pack_bwd_rows(kp["wbuf"])
+    else:
+        kp["wpack"] = pack_weight_stream(kp["wbuf"])
+        kp["wpack_bwd"] = pack_bwd_stream(kp["wbuf"])
     return kp
 
 
@@ -249,14 +275,22 @@ def fused_nerf_eval_plain(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
     return torch.cat([rgb, sigma], dim=-1).float()
 
 
-def _check_launch(kp, pts, dirs) -> int:
+# the weight dtypes that have a kernel: bf16 (csrc/fused_mlp.cu) and float32
+# (csrc/fused_mlp_f32.cu)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_launch(kp, pts, dirs, dtypes=(torch.bfloat16,)) -> int:
+    """P, after checking the inputs and that ``wbuf`` holds one of
+    ``dtypes`` (an other dtype raises as a bf16 buffer would)."""
     P = pts.shape[0]
     if P > build.MAX_LAUNCH_ROWS:
         raise ValueError(f"{P} points in one call; split it into calls of at most "
                          f"{build.MAX_LAUNCH_ROWS}")
     build.check_cuda("pts", pts, torch.float32, (P, 3))
     build.check_cuda("dirs", dirs, torch.float32, (P, 3))
-    build.check_cuda("wbuf", kp["wbuf"], torch.bfloat16, (WBUF_SIZE,), align=32)
+    dt = kp["wbuf"].dtype if kp["wbuf"].dtype in dtypes else dtypes[0]
+    build.check_cuda("wbuf", kp["wbuf"], dt, (WBUF_SIZE,), align=32)
     build.check_cuda("bbuf", kp["bbuf"], torch.float32, (BBUF_SIZE,))
     return P
 
@@ -274,13 +308,21 @@ def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
                            "for gradients")
     if pts.device.type == "cpu":
         return fused_nerf_eval_plain(kp, pts, dirs)
-    P = _check_launch(kp, pts, dirs)
-    build.check_cuda("wpack", kp["wpack"], torch.bfloat16, (WPACK_SIZE,), align=16)
+    P = _check_launch(kp, pts, dirs, KERNEL_DTYPES)
     out = torch.empty((P, 4), dtype=torch.float32, device=pts.device)
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    if kp["wbuf"].dtype == torch.float32:
+        rc = _lib_f32().launch_fused_nerf_f32(pts.data_ptr(), dirs.data_ptr(),
+                                              kp["wbuf"].data_ptr(), kp["bbuf"].data_ptr(),
+                                              out.data_ptr(), P, stream)
+        if rc != 0:
+            raise RuntimeError(f"fused_nerf float32 kernel launch failed: CUDA error {rc}")
+        fused_nerf_eval_f32.launches += 1
+        return out
+    build.check_cuda("wpack", kp["wpack"], torch.bfloat16, (WPACK_SIZE,), align=16)
     rc = _lib().launch_fused_nerf(pts.data_ptr(), dirs.data_ptr(), kp["wpack"].data_ptr(),
                                   kp["wbuf"].data_ptr(), kp["bbuf"].data_ptr(),
-                                  out.data_ptr(), P,
-                                  torch.cuda.current_stream(pts.device).cuda_stream)
+                                  out.data_ptr(), P, stream)
     if rc != 0:
         raise RuntimeError(f"fused_nerf kernel launch failed: CUDA error {rc}")
     fused_nerf_eval.launches += 1
@@ -288,6 +330,20 @@ def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
 
 
 fused_nerf_eval.launches = 0
+
+
+def fused_nerf_eval_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
+                        dirs: torch.Tensor) -> torch.Tensor:
+    """``fused_nerf_eval`` for float32 weights (B1-f32, ``csrc/fused_mlp_f32.cu``;
+    true float32 products on the CUDA cores). ``fused_nerf_eval`` dispatches
+    here on ``kp["wbuf"].dtype``; ``fused_nerf_eval_f32.launches`` counts its
+    launches (``fused_nerf_eval.launches`` counts the bf16 kernel's)."""
+    if pts.device.type != "cpu" and kp["wbuf"].dtype != torch.float32:
+        raise ValueError(f"wbuf: need float32 weights, got {kp['wbuf'].dtype}")
+    return fused_nerf_eval(kp, pts, dirs)
+
+
+fused_nerf_eval_f32.launches = 0
 
 
 def fused_nerf_eval_wmma(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
@@ -339,6 +395,22 @@ def _lib() -> ctypes.CDLL:
     if tuple(v.value for v in sizes) != want:
         raise RuntimeError(f"fused_mlp.cu buffer sizes {tuple(v.value for v in sizes)} "
                            f"differ from {want}")
+    return lib
+
+
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    lib = build.load("fused_mlp_f32")
+    p = ctypes.c_void_p
+    lib.launch_fused_nerf_f32.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+    lib.launch_fused_nerf_f32.restype = ctypes.c_int
+    lib.fused_nerf_f32_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.fused_nerf_f32_sizes.restype = None
+    sizes = [ctypes.c_int() for _ in range(2)]
+    lib.fused_nerf_f32_sizes(*(ctypes.byref(v) for v in sizes))
+    if tuple(v.value for v in sizes) != (WBUF_SIZE, BBUF_SIZE):
+        raise RuntimeError(f"fused_mlp_f32.cu buffer sizes {tuple(v.value for v in sizes)} "
+                           f"differ from {(WBUF_SIZE, BBUF_SIZE)}")
     return lib
 
 

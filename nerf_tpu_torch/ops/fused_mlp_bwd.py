@@ -256,6 +256,57 @@ def backward_from_activations(kp: Dict[str, torch.Tensor], acts: Dict[str, torch
     return kgrads, dpts.float(), ddirs.float()
 
 
+# Rounding margin of a ReLU pre-activation z = sum_i w_i h_i + b in float32:
+# KNIFE_EDGE_C * 2^-24 * (sum_i |w_i h_i| + |b|). A blocked float32 dot
+# product of K <= 319 terms (layer 5) errs by about sqrt(K) * 2^-24 of that
+# sum (<= 18 units; K * 2^-24 at worst), and the inputs carry in their own
+# rounding from up to eight layers below and from sin/cos of the exact
+# float32 phases (a few units each, of the same magnitudes).
+KNIFE_EDGE_C = 64.0
+
+
+def relu_margins(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor):
+    """[(layer, z, s)] for every ReLU layer of the plain forward (pts layers
+    0-7 and the view layer "v"), in float64 from the float32 weights ``kp``
+    and the float32 phases: z the pre-activations [P, units], s the sums of
+    |w_i h_i| + |b|."""
+    f64 = torch.float64
+    w = {k: v.to(f64) for k, v in kp.items() if k != "wbuf_t"}
+    x, dd = pts.to(f64), dirs.to(f64)
+    a = _phases(pts.float(), kp["sx"]).to(f64)
+    b = _phases(dirs.float(), kp["sd"]).to(f64)
+
+    def lin(terms, bias):
+        z = sum(h @ w[k] for h, k in terms) + w[bias]
+        s = sum(h.abs() @ w[k].abs() for h, k in terms) + w[bias].abs()
+        return z, s
+
+    enc = [(x, "w0x"), (a.sin(), "w0s"), (a.cos(), "w0c")]
+    out = [(0, *lin(enc, "b0"))]
+    for i in (1, 2, 3, 4):
+        out.append((i, *lin([(out[-1][1].clamp_min(0), f"w{i}")], f"b{i}")))
+    enc5 = [(h, k.replace("0", "5")) for h, k in enc]
+    out.append((5, *lin(enc5 + [(out[-1][1].clamp_min(0), "w5h")], "b5")))
+    for i in (6, 7):
+        out.append((i, *lin([(out[-1][1].clamp_min(0), f"w{i}")], f"b{i}")))
+    feat = out[-1][1].clamp_min(0) @ w["wf"] + w["bf"]
+    view = [(feat, "wvf"), (dd, "wvx"), (b.sin(), "wvs"), (b.cos(), "wvc")]
+    out.append(("v", *lin(view, "bv")))
+    return out
+
+
+def knife_edge_points(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
+                      c: float = KNIFE_EDGE_C) -> torch.Tensor:
+    """bool [P]: points with a ReLU unit within c * 2^-24 * s of zero
+    (``relu_margins``): two correct float32 forwards may decide such a unit
+    either way, and one flip moves a whole gradient leaf, so a comparison of
+    two float32 backwards zeroes these points' cotangents on both sides."""
+    hit = torch.zeros(pts.shape[0], dtype=torch.bool, device=pts.device)
+    for _, z, s in relu_margins(kp, pts, dirs):
+        hit |= (z.abs() < c * 2.0 ** -24 * s).any(dim=1)
+    return hit
+
+
 def _phases_t(da: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """da @ S^T as exact sums of scaled terms (S: one power of two per column)."""
     d = s.shape[0]
@@ -306,16 +357,36 @@ def fused_nerf_bwd(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.T
                               Optional[torch.Tensor]]:
     """``fused_nerf_bwd_plain``'s function: the CUDA kernels for CUDA tensors,
     the plain version for CPU tensors. pts, dirs [P, 3], g [P, 4] float32.
-    Scratch of ~10 KB a point (the activation stash and the layer
-    gradients) lives until the call returns."""
+    bf16 weights take ``csrc/fused_mlp_bwd.cu`` (scratch ~10 KB a point),
+    float32 weights ``csrc/fused_mlp_bwd_f32.cu`` (``launch_f32``: ~19.8 KB
+    a point of at most ``F32_CHUNK`` points); the scratch lives until the
+    call returns."""
     if pts.device.type == "cpu":
         return fused_nerf_bwd_plain(kp, pts, dirs, g, input_grads=input_grads)
-    out = launch_full(kp, pts, dirs, g, input_grads, unpack=False)
-    fused_nerf_bwd.launches += 1
+    if kp["wbuf"].dtype == torch.float32:
+        out = launch_f32(kp, pts, dirs, g, input_grads)
+        fused_nerf_bwd_f32.launches += 1
+    else:
+        out = launch_full(kp, pts, dirs, g, input_grads, unpack=False)
+        fused_nerf_bwd.launches += 1
     return out["kgrads"], out["dpts"], out["ddirs"]
 
 
-def _check_inputs(kp, pts, dirs, g) -> int:
+def fused_nerf_bwd_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
+                       g: torch.Tensor, input_grads: bool = True):
+    """``fused_nerf_bwd`` for float32 weights (B2-f32,
+    ``csrc/fused_mlp_bwd_f32.cu``; true float32 products on the CUDA cores).
+    ``fused_nerf_bwd`` dispatches here on ``kp["wbuf"].dtype``;
+    ``fused_nerf_bwd_f32.launches`` counts its launches."""
+    if pts.device.type != "cpu" and kp["wbuf"].dtype != torch.float32:
+        raise ValueError(f"wbuf: need float32 weights, got {kp['wbuf'].dtype}")
+    return fused_nerf_bwd(kp, pts, dirs, g, input_grads)
+
+
+fused_nerf_bwd_f32.launches = 0
+
+
+def _check_inputs(kp, pts, dirs, g, dtype=torch.bfloat16) -> int:
     P = pts.shape[0]
     if P > build.MAX_LAUNCH_ROWS:
         raise ValueError(f"{P} points in one call; split it into calls of at most "
@@ -323,7 +394,7 @@ def _check_inputs(kp, pts, dirs, g) -> int:
     build.check_cuda("pts", pts, torch.float32, (P, 3))
     build.check_cuda("dirs", dirs, torch.float32, (P, 3))
     build.check_cuda("g", g, torch.float32, (P, 4), align=16)
-    build.check_cuda("wbuf", kp["wbuf"], torch.bfloat16, (WBUF_SIZE,), align=32)
+    build.check_cuda("wbuf", kp["wbuf"], dtype, (WBUF_SIZE,), align=32)
     build.check_cuda("bbuf", kp["bbuf"], torch.float32, (BBUF_SIZE,))
     return P
 
@@ -478,6 +549,78 @@ def bind(lib: ctypes.CDLL):
 @functools.cache
 def _lib():
     return bind(build.load("fused_mlp_bwd"))
+
+
+# The float32 backward (csrc/fused_mlp_bwd_f32.cu): its scratch is ~19.8 KB
+# a point (a float32 stash of the activations and gbuf of the layer
+# gradients), so it runs on chunks of at most F32_CHUNK points (5.2 GB); the
+# weight gradients of a chunk are summed over F32_SPLITS point ranges (one per
+# 64 tiles of 64 points, at most 16), then added to the chunks' before.
+F32_TILE = 64
+F32_CHUNK = 1 << 18
+F32_MAX_SPLITS, F32_TILES_PER_SPLIT = 16, 64
+F32_PHASES_ALL = 15  # forward + stash, chain, weight gradients, reduce
+
+
+def f32_splits_for(n_points: int) -> int:
+    return max(1, min(F32_MAX_SPLITS, (n_points // F32_TILE) // F32_TILES_PER_SPLIT))
+
+
+def launch_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
+               g: torch.Tensor, input_grads: bool = True, chunk: int = F32_CHUNK,
+               phases: int = F32_PHASES_ALL):
+    """The float32 backward's launches on CUDA tensors (not counted:
+    ``fused_nerf_bwd`` counts them). Returns {kgrads, dpts, ddirs, raw (the
+    recomputed forward [P, 4]), stash_slabs ([tiles, SLD, 64] float32, of the
+    last chunk), gbuf_slabs, args, keep}: ``_lib_f32()[0].launch_fused_nerf_bwd_f32(*args)``
+    launches it again while ``keep`` lives; its last int but one selects the
+    launches (``F32_PHASES_ALL`` all four)."""
+    P = _check_inputs(kp, pts, dirs, g, torch.float32)
+    build.check_cuda("wbuf_t", kp["wbuf_t"], torch.float32, (WPACK_SIZE,), align=16)
+    lib, sld, gld, pst = _lib_f32()
+    pts, dirs, g = _pad(F32_TILE, pts, dirs, g)
+    n = pts.shape[0]
+    chunk = min(n, max(F32_TILE, chunk - chunk % F32_TILE))
+    splits = f32_splits_for(chunk)
+    dev = pts.device
+    tiles = chunk // F32_TILE
+    stash = torch.empty((tiles, sld, F32_TILE), dtype=torch.float32, device=dev)
+    gbuf = torch.empty((tiles, gld, F32_TILE), dtype=torch.float32, device=dev)
+    partial = torch.empty((splits, pst), dtype=torch.float32, device=dev)
+    flat = torch.empty(pst, dtype=torch.float32, device=dev)
+    raw = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    dpts = torch.empty((n, 3), dtype=torch.float32, device=dev) if input_grads else None
+    ddirs = torch.empty((n, 3), dtype=torch.float32, device=dev) if input_grads else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = [pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), kp["wbuf"].data_ptr(),
+            kp["bbuf"].data_ptr(), kp["wbuf_t"].data_ptr(), stash.data_ptr(), gbuf.data_ptr(),
+            partial.data_ptr(), flat.data_ptr(), raw.data_ptr(), ptr(dpts), ptr(ddirs), n,
+            chunk, splits, int(input_grads), phases, torch.cuda.current_stream(dev).cuda_stream]
+    rc = lib.launch_fused_nerf_bwd_f32(*args)
+    if rc != 0:
+        raise RuntimeError(f"fused_nerf_bwd float32 kernel launch failed: CUDA error {rc}")
+    keep = (pts, dirs, g, stash, gbuf, partial, flat, raw, dpts, ddirs)
+    return {"kgrads": _grads_of(flat, kp), "dpts": dpts[:P] if input_grads else None,
+            "ddirs": ddirs[:P] if input_grads else None, "raw": raw[:P],
+            "stash_slabs": stash, "gbuf_slabs": gbuf, "args": args, "keep": keep}
+
+
+@functools.cache
+def _lib_f32():
+    """(lib, SLD, GLD, PST) of the float32 backward's library."""
+    lib = build.load("fused_mlp_bwd_f32")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.launch_fused_nerf_bwd_f32.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.launch_fused_nerf_bwd_f32.restype = ctypes.c_int
+    lib.fused_nerf_bwd_f32_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    lib.fused_nerf_bwd_f32_sizes.restype = None
+    sizes = [ctypes.c_int() for _ in range(4)]
+    lib.fused_nerf_bwd_f32_sizes(*(ctypes.byref(v) for v in sizes))
+    sld, gld, pst, wt = (v.value for v in sizes)
+    if (pst, wt) != (WBUF_SIZE + BBUF_SIZE, WPACK_SIZE):
+        raise RuntimeError(f"fused_mlp_bwd_f32.cu sizes {(pst, wt)} differ from "
+                           f"{(WBUF_SIZE + BBUF_SIZE, WPACK_SIZE)}")
+    return lib, sld, gld, pst
 
 
 def kgrads_to_param_grads(kgrads: Dict[str, torch.Tensor], params, xyz_freqs: int = 10,

@@ -5,15 +5,17 @@ composite -> inverse-CDF fine samples on the coarse weights -> merge-sort ->
 fine query -> composite. ``render_image`` renders an image in tiles of
 ``tile_rays`` rays, one Python loop iteration each.
 
-The query goes through the fused MLP kernel and compositing through the
-integrate kernel; on CPU tensors both wrappers run their plain versions.
-``use_fused_mlp=False`` / ``use_integrate_kernel=False`` take the plain
-versions on any device. A hash-grid model (``xyz_encoder_type ==
-"hashgrid"``) queries through ``query_hashgrid`` instead: the hash encoder's
-row gather (the B4 kernel; with ``use_fused_mlp=False``, the switch of the
-query's kernels as ``nerf_tpu``'s ``use_pallas`` is, its plain version), the
-directions' frequency encoding and the MLP in plain PyTorch, as the JAX
-package runs that MLP through XLA.
+The query goes through the fused MLP kernel (bf16 or float32 weights) and
+compositing through the integrate kernel; on CPU tensors both wrappers run
+their plain versions. ``use_fused_mlp=False`` / ``use_integrate_kernel=False``
+take the plain versions on any device. A hash-grid model (``xyz_encoder_type
+== "hashgrid"``) queries through ``query_mlp`` instead: the hash
+encoder's row gather (the B4 kernel; with ``use_fused_mlp=False``, the switch
+of the query's kernels as ``nerf_tpu``'s ``use_pallas`` is, its plain
+version), the directions' frequency encoding and the MLP in plain PyTorch, as
+the JAX package runs that MLP through XLA. So does a frequency NeRF of any
+other shape than the fused kernel's (``supports``; ``query_mlp``): its
+encodings and MLP in plain PyTorch, as JAX's ``query_network_xla``.
 
 Compaction (``RenderOptions.ess_compaction`` > 0, evaluation only): the
 fine pass evaluates only the samples that lie in occupied voxels
@@ -40,8 +42,8 @@ import torch
 from ..models.encoders import freq_encode, freq_out_dim
 from ..models.hashgrid import hashgrid_encode, table_shape
 from ..models.nerf_mlp import apply_nerf_mlp
-from ..ops.fused_mlp import (fused_nerf_eval, fused_nerf_eval_plain, query_network,
-                             repack_params, supports)
+from ..ops.fused_mlp import (KERNEL_DTYPES, fused_nerf_eval, fused_nerf_eval_plain,
+                             query_network, repack_params, supports)
 from ..ops.integrate import composite_kernel
 from ..tree import tree_map
 from . import occupancy as occ
@@ -49,7 +51,7 @@ from .composite import EMPTY_SIGMA_RAW, composite, density_activation
 from .rays import image_rays
 from .sampling import sample_coarse, sample_pdf
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +108,7 @@ class RenderOptions:
         """The shapes ``train.checkpoint.load_params`` reads a model by."""
         return dict(D=self.mlp_depth, W=self.mlp_width, input_ch=self.input_ch,
                     input_ch_views=self.input_ch_views, skips=self.skips,
+                    use_viewdirs=self.use_viewdirs,
                     hash_table=table_shape(self.hash_levels, self.hash_features,
                                            self.hash_log2_size, self.hash_layout)
                     if self.hashgrid else None)
@@ -173,24 +176,22 @@ def kernel_params(tree: Mapping[str, Any], opts: RenderOptions,
     weights [in, out]) -> their ``repack_params`` weights in
     ``opts.compute_dtype``, on ``device``.
 
-    The CUDA kernel takes bfloat16 weights only: float32 weights on a CUDA
-    device raise unless ``opts.use_fused_mlp`` is off (the plain version).
-    A hash-grid model keeps its tree: float32 MLP leaves and the table in
-    ``opts.hash_dtype``, as tensors on ``device``."""
-    if opts.hashgrid:
-        dev = torch.device(device)
-
+    The CUDA kernels take bfloat16 or float32 weights (``check_weight_dtype``).
+    A model the fused kernel does not cover (the hash grid, or a frequency
+    NeRF of another shape, ``supports``) keeps its tree: float32 MLP leaves
+    (and a hash-grid table in ``opts.hash_dtype``), as tensors on ``device``."""
+    dev = torch.device(device)
+    if opts.hashgrid or not supports(opts):
         def leaf(x, dtype=torch.float32):
             return torch.as_tensor(x).detach().to(device=dev, dtype=dtype)
 
-        return {name: {**tree_map(leaf, {k: v for k, v in sub.items() if k != "xyz_encoder"}),
-                       "xyz_encoder": {"table": leaf(sub["xyz_encoder"]["table"],
-                                                     _DTYPES[opts.hash_dtype])}}
-                for name, sub in tree.items()}
-    if not supports(opts):
-        raise NotImplementedError("only the 8x256 skip-4 view-direction NeRF "
-                                  "with 10/4 frequency bands is ported")
-    dev = torch.device(device)
+        out = {}
+        for name, sub in tree.items():
+            out[name] = tree_map(leaf, {k: v for k, v in sub.items() if k != "xyz_encoder"})
+            if "xyz_encoder" in sub:
+                out[name]["xyz_encoder"] = {"table": leaf(sub["xyz_encoder"]["table"],
+                                                          _DTYPES[opts.hash_dtype])}
+        return out
     check_weight_dtype(opts, dev)
     return {name: {k: v.to(dev) for k, v in repack_params(
                 sub, opts.xyz_freqs, opts.dir_freqs, _DTYPES[opts.compute_dtype]).items()}
@@ -198,13 +199,16 @@ def kernel_params(tree: Mapping[str, Any], opts: RenderOptions,
 
 
 def check_weight_dtype(opts: RenderOptions, device: torch.device) -> None:
-    """The CUDA kernels take bfloat16 weights only: raise for float32 weights
-    on a CUDA device unless ``opts.use_fused_mlp`` is off (the plain version)."""
-    if (device.type == "cuda" and opts.use_fused_mlp and not opts.hashgrid
-            and opts.compute_dtype != "bfloat16"):
+    """Raise for weights of a dtype that has no fused kernel
+    (``fused_mlp.KERNEL_DTYPES``) on a CUDA device, unless
+    ``opts.use_fused_mlp`` is off (the plain version) or the model does not
+    go through the fused kernel (``supports``)."""
+    if (device.type == "cuda" and opts.use_fused_mlp and not opts.hashgrid and supports(opts)
+            and _DTYPES.get(opts.compute_dtype) not in KERNEL_DTYPES):
+        names = " or ".join(str(d).replace("torch.", "") for d in KERNEL_DTYPES)
         raise NotImplementedError(
-            f"the fused CUDA kernel takes bfloat16 weights, not {opts.compute_dtype}; "
-            "set use_pallas_kernels False to run them through the plain version")
+            f"the fused CUDA kernels take {names} weights, not {opts.compute_dtype}; set "
+            "use_pallas_kernels False to run them through the plain version")
 
 
 # points per hash-grid density evaluation: each point gathers L rows and
@@ -216,20 +220,21 @@ def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """[M, 3] -> activated sigma of the MLP ``kp``, for grid rebuilds. Sigma
     does not depend on the view direction, so the directions are zeros (for
-    the hash-grid model a zero direction embedding, as the JAX package's
-    trainer feeds it, evaluated in chunks of ``HASH_DENSITY_CHUNK`` points)."""
-    if opts.hashgrid:
-        def hash_density(pts: torch.Tensor) -> torch.Tensor:
+    a model queried in plain PyTorch, the hash grid or a frequency NeRF of
+    another shape, a zero direction embedding, as the JAX package's trainer
+    feeds it, evaluated in chunks of ``HASH_DENSITY_CHUNK`` points)."""
+    if opts.hashgrid or not supports(opts):
+        def mlp_density(pts: torch.Tensor) -> torch.Tensor:
             out = []
             for p in pts.split(HASH_DENSITY_CHUNK):
-                emb = _hash_embed(kp, p, opts)
+                emb = _xyz_embed(kp, p, opts)
                 x = torch.cat([emb, emb.new_zeros(p.shape[0], opts.input_ch_views)], dim=-1)
                 raw = apply_nerf_mlp(kp, x, opts.input_ch, opts.skips,
-                                     _DTYPES[opts.compute_dtype])
+                                     _DTYPES[opts.compute_dtype], opts.use_viewdirs)
                 out.append(density_activation(raw[:, 3], opts.sigma_activation))
             return torch.cat(out)
 
-        return hash_density
+        return mlp_density
 
     fn = fused_nerf_eval if opts.use_fused_mlp else fused_nerf_eval_plain
 
@@ -240,32 +245,38 @@ def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions
     return density
 
 
-def _hash_embed(params, pts: torch.Tensor, opts: RenderOptions) -> torch.Tensor:
+def _xyz_embed(params, pts: torch.Tensor, opts: RenderOptions) -> torch.Tensor:
+    """The points' encoding: the hash grid's or the frequency encoding."""
+    if not opts.hashgrid:
+        return freq_encode(pts, opts.xyz_freqs)
     return hashgrid_encode(params["xyz_encoder"], pts, base_resolution=opts.hash_base_res,
                            per_level_scale=opts.hash_scale, layout=opts.hash_layout,
                            plain=not opts.use_fused_mlp)
 
 
-def query_hashgrid(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
-                   opts: RenderOptions) -> torch.Tensor:
-    """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] of a hash-grid model
-    (the tree of ``init_nerf_params``/``kernel_params``, with "xyz_encoder"):
-    hash encoding, the directions' frequency encoding, the MLP."""
+def query_mlp(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
+              opts: RenderOptions) -> torch.Tensor:
+    """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] of a model queried in
+    plain PyTorch (the tree of ``init_nerf_params``/``kernel_params``): the
+    points' encoding (``_xyz_embed``), the directions' frequency encoding,
+    the MLP; the counterpart of ``nerf_tpu``'s ``query_network_xla``."""
     n, s, _ = pts.shape
-    emb = _hash_embed(params, pts.reshape(-1, 3), opts)
+    emb = _xyz_embed(params, pts.reshape(-1, 3), opts)
     if opts.use_viewdirs:
         dirs = viewdirs[:, None, :].expand(n, s, 3).reshape(-1, 3)
         emb = torch.cat([emb, freq_encode(dirs, opts.dir_freqs)], dim=-1)
-    raw = apply_nerf_mlp(params, emb, opts.input_ch, opts.skips, _DTYPES[opts.compute_dtype])
+    raw = apply_nerf_mlp(params, emb, opts.input_ch, opts.skips, _DTYPES[opts.compute_dtype],
+                         opts.use_viewdirs)
     return raw.reshape(n, s, 4)
 
 
 def query(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
           opts: RenderOptions) -> torch.Tensor:
     """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] through the model's
-    query: the fused kernel (or its plain version), or the hash-grid query."""
-    if opts.hashgrid:
-        return query_hashgrid(params, pts, viewdirs, opts)
+    query: the fused kernel (or its plain version) for the shape it covers,
+    else ``query_mlp``."""
+    if opts.hashgrid or not supports(opts):
+        return query_mlp(params, pts, viewdirs, opts)
     return query_network(params, pts, viewdirs, plain=not opts.use_fused_mlp,
                          xyz_freqs=opts.xyz_freqs, dir_freqs=opts.dir_freqs,
                          weight_dtype=_DTYPES[opts.compute_dtype])

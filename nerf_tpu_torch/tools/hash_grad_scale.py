@@ -13,8 +13,10 @@ through the kernels, through the plain versions, and through the plain
 versions with float32 MLP weights. For the leaves of ``alpha_linear`` (the
 density head: 0, 1 coarse, 17, 18 fine) and the largest leaf it prints the
 norm of the plain gradient and, relative to it, the kernel path's distance
-and bf16's (plain against float32); phase 13 fails when the first exceeds
-max(1e-2, 2 x the second). The card's name and power limit head the output.
+and bf16's (plain against float32). Phase 13 holds a leaf to max(1e-2,
+2 x the second) in relative distance, or, below ``HASH_SMALL_LEAF`` (1e-4)
+of the largest leaf's norm, in absolute distance scaled by that norm; these
+figures chose that line. The card's name and power limit head the output.
 """
 from __future__ import annotations
 

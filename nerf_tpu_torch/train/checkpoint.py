@@ -41,17 +41,23 @@ Tree = Dict[str, Any]
 
 def _mlp_leaf_shapes(D: int = 8, W: int = 256, input_ch: int = 63,
                      input_ch_views: int = 27, skips=(4,),
-                     hash_table: Optional[tuple] = None) -> List[Tuple[tuple, tuple]]:
-    """[(path, shape)] of one MLP (and its hash table) in JAX flatten order."""
-    out = [(("alpha_linear", "b"), (1,)), (("alpha_linear", "w"), (W, 1)),
-           (("feature_linear", "b"), (W,)), (("feature_linear", "w"), (W, W))]
+                     hash_table: Optional[tuple] = None,
+                     use_viewdirs: bool = True) -> List[Tuple[tuple, tuple]]:
+    """[(path, shape)] of one MLP (and its hash table) in JAX flatten order.
+    Without view directions the heads are output_linear [W, 4], which sorts
+    before pts_linears."""
+    out = ([(("alpha_linear", "b"), (1,)), (("alpha_linear", "w"), (W, 1)),
+            (("feature_linear", "b"), (W,)), (("feature_linear", "w"), (W, W))]
+           if use_viewdirs else
+           [(("output_linear", "b"), (4,)), (("output_linear", "w"), (W, 4))])
     in_dim = input_ch
     for i in range(D):
         out += [(("pts_linears", i, "b"), (W,)), (("pts_linears", i, "w"), (in_dim, W))]
         in_dim = W + input_ch if i in skips else W
-    out += [(("rgb_linear", "b"), (3,)), (("rgb_linear", "w"), (W // 2, 3)),
-            (("views_linears", 0, "b"), (W // 2,)),
-            (("views_linears", 0, "w"), (W + input_ch_views, W // 2))]
+    if use_viewdirs:
+        out += [(("rgb_linear", "b"), (3,)), (("rgb_linear", "w"), (W // 2, 3)),
+                (("views_linears", 0, "b"), (W // 2,)),
+                (("views_linears", 0, "w"), (W + input_ch_views, W // 2))]
     if hash_table is not None:
         out.append((("xyz_encoder", "table"), tuple(hash_table)))
     return out
@@ -87,7 +93,8 @@ def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
     """Read the {"coarse", "fine"} params of a ``nerf_tpu`` NeRF checkpoint as
     a JAX-layout pytree of float32 numpy arrays (weights [in, out]). A
     hash-grid model (``hash_table=`` its table's shape) gets its table too,
-    its bfloat16 values widened to float32 exactly.
+    its bfloat16 values widened to float32 exactly; a model without view
+    directions (``use_viewdirs=False``) has output_linear for its heads.
 
     Raises ``FileNotFoundError`` when the checkpoint is missing and
     ``ValueError`` when a leaf does not have the expected shape.

@@ -1,7 +1,9 @@
 """The training loop; counterpart of ``nerf_tpu/train/loop.py`` (one device, no mesh).
 
 An epoch is ``ep_iter`` steps, run in chunks of ``scan_chunk`` steps whose
-mean stats are checked, recorded and logged; then the ESS grid is rebuilt
+mean stats are checked, recorded and logged (with ``train_full_image``, one
+whole-image step at a time, logged every ``log_interval`` steps and counted
+as H x W rays in the rays/s line); then the ESS grid is rebuilt
 from the learned density every ``grid_rebuild_ep`` epochs, starting from the
 seed grid each time (a resumed run starts from the seed grid too, as the JAX
 package does); checkpoints every ``save_latest_ep`` / ``save_ep`` epochs,
@@ -22,7 +24,6 @@ from ..device import resolve_device
 from ..eval.metrics import psnr as psnr_fn
 from ..models.hashgrid import init_hashgrid
 from ..models.nerf_mlp import init_nerf_mlp
-from ..ops.fused_mlp import supports
 from ..render import occupancy as occ
 from ..render import renderer
 from ..render.renderer import RenderOptions, check_weight_dtype, render_image
@@ -30,7 +31,7 @@ from ..tree import tree_leaves
 from .checkpoint import load_checkpoint, load_params, save_checkpoint, wipe_dir
 from .optim import make_optimizer
 from .recorder import Recorder
-from .state import init_state, train_steps
+from .state import init_state, train_step_full_image, train_steps
 
 
 def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
@@ -42,7 +43,8 @@ def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
     start near 0, so sigma_raw is about that bias everywhere, and a negative
     one would start every density dead."""
     kw = dict(D=opts.mlp_depth, W=opts.mlp_width, input_ch=opts.input_ch,
-              input_ch_views=opts.input_ch_views, skips=opts.skips, device=device)
+              input_ch_views=opts.input_ch_views, skips=opts.skips, device=device,
+              use_viewdirs=opts.use_viewdirs)
     params = {"coarse": init_nerf_mlp(generator, **kw), "fine": init_nerf_mlp(generator, **kw)}
     if opts.hashgrid:
         for model in params.values():
@@ -59,8 +61,8 @@ def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
 
 def make_density_fn(params, opts: RenderOptions):
     """[M, 3] -> activated sigma of the MLP tree ``params`` (the coarse model),
-    through the fused kernel (or, for a hash-grid model, the hash query), for
-    grid rebuilds."""
+    through the fused kernel (or, for a model it does not cover, the plain
+    query's encodings and MLP), for grid rebuilds."""
     dev = params["pts_linears"][0]["w"].device
     kp = renderer.kernel_params({"m": params}, opts, dev)["m"]
     return renderer.make_density_fn(kp, opts)
@@ -81,9 +83,6 @@ def train(cfg, max_epochs: Optional[int] = None,
     """Train ``cfg``'s NeRF; returns (state, grid). ``device`` defaults to CUDA."""
     dev = resolve_device(device)
     opts = RenderOptions.from_cfg(cfg)
-    if not (opts.hashgrid or supports(opts)):
-        raise NotImplementedError("only the 8x256 skip-4 view-direction NeRF "
-                                  "with 10/4 frequency bands and the hash-grid NeRF are ported")
     check_weight_dtype(opts, dev)
     seed = int(cfg.get("seed", 0))
     gen_init = torch.Generator().manual_seed(seed)
@@ -133,6 +132,10 @@ def train(cfg, max_epochs: Optional[int] = None,
     grid_rebuild_ep = int(cfg.get("grid_rebuild_ep", 10))
     precrop = (int(cfg.task_arg.get("precrop_iters", 0)),
                float(cfg.task_arg.get("precrop_frac", 0.5)))
+    # whole-image steps (the reference's full-image loss): one image's H x W
+    # rays a step, in tiles of render_tile_rays, as the JAX package's loop
+    full_image = bool(cfg.get("train_full_image", False))
+    rays_per_step = ds.H * ds.W if full_image else n_rays
 
     for epoch in range(begin_epoch, end_epoch):
         recorder.epoch = epoch
@@ -141,24 +144,32 @@ def train(cfg, max_epochs: Optional[int] = None,
         t_epoch = time.perf_counter()
         done = 0
         while done < ep_iter:
-            n = min(chunk, ep_iter - done)
             lr = tx.lr(state.opt_state)
-            host_stats = train_steps(state, images_u8, poses, K, tx, opts, n_rays, n,
-                                     grid=grid, generator=gen_train, precrop_iters=precrop[0],
-                                     precrop_frac=precrop[1])
+            if full_image:
+                n = 1
+                stats = train_step_full_image(state, images_u8, poses, K, tx, opts, ds.H, ds.W,
+                                              tile=opts.tile_rays, grid=grid,
+                                              generator=gen_train)
+                host_stats = {k: float(v) for k, v in stats.items()}
+            else:
+                n = min(chunk, ep_iter - done)
+                host_stats = train_steps(state, images_u8, poses, K, tx, opts, n_rays, n,
+                                         grid=grid, generator=gen_train,
+                                         precrop_iters=precrop[0], precrop_frac=precrop[1])
             done += n
             check_finite_stats(host_stats, epoch, done)
             recorder.step = state.step
             recorder.update(host_stats)
             recorder.record("train", stats=host_stats)
-            print(f"epoch {epoch} iter {done}/{ep_iter}  "
-                  + "  ".join(f"{k}: {v:.4f}" for k, v in host_stats.items())
-                  + f"  lr: {lr:.3e}", flush=True)
+            if not full_image or done % log_interval == 0 or done >= ep_iter:
+                print(f"epoch {epoch} iter {done}/{ep_iter}  "
+                      + "  ".join(f"{k}: {v:.4f}" for k, v in host_stats.items())
+                      + f"  lr: {lr:.3e}", flush=True)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t_epoch
-        print(f"epoch {epoch} done in {dt:.2f}s  ({ep_iter * n_rays / dt:,.0f} train rays/s)",
-              flush=True)
+        print(f"epoch {epoch} done in {dt:.2f}s  ({ep_iter * rays_per_step / dt:,.0f} "
+              "train rays/s)", flush=True)
 
         if grid is not None and (epoch + 1) % grid_rebuild_ep == 0:
             grid = occ.populate_from_density(seed_grid,

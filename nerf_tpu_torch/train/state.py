@@ -4,6 +4,8 @@ The images (uint8) and poses live on the device; each step draws (image,
 pixel) pairs from a ``torch.Generator``, builds their rays and targets,
 renders them with gradients, and applies one optimizer step. The loss is
 MSE(coarse) + MSE(fine), and psnr = -10 log10(MSE(fine)).
+``train_step_full_image`` renders every ray of one image instead, in tiles
+whose gradients are summed before the one step.
 
 Unlike the JAX package, which returns a new state, ``train_step`` updates
 the state's parameters and optimizer moments in place (no second copy of
@@ -18,7 +20,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..render.occupancy import OccupancyGrid
-from ..render.rays import rays_for_pixels
+from ..render.rays import image_rays, rays_for_pixels
 from ..render.renderer import RenderOptions, render_rays
 from ..tree import tree_leaves
 from .optim import OptState, Optimizer
@@ -118,3 +120,64 @@ def train_steps(state: TrainState, images_u8, poses, intrinsics, tx: Optimizer,
         for k, v in stats.items():
             sums[k] = sums[k] + v if k in sums else v
     return {k: float(v) / n_steps for k, v in sums.items()}
+
+
+def train_step_full_image(state: TrainState, images_u8: torch.Tensor, poses: torch.Tensor,
+                          intrinsics: torch.Tensor, tx: Optimizer, opts: RenderOptions, H: int,
+                          W: int, tile: int = 4096, grid: Optional[OccupancyGrid] = None,
+                          generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """One whole-image step, the counterpart of ``nerf_tpu``'s
+    ``train_step_full_image``: one image drawn from ``generator``, all H x W
+    of its rays rendered with gradients in tiles of ``tile`` rays (the last
+    tile holds the rest, so no padded ray enters a sum). Each tile's sum of
+    squared errors, coarse plus fine, is back-propagated and the gradients
+    are summed over the tiles in each leaf's dtype; the sums divided by
+    H W 3 are the gradients of the image's mean MSE, and one optimizer step
+    follows. Updates ``state`` in place; returns loss, loss_coarse,
+    loss_fine (0 without a fine pass) and psnr (on the fine loss when there
+    is one). A tile that does not fit in device memory raises
+    ``MemoryError`` with its size: the tile is the user's
+    ``render_tile_rays``, not changed here."""
+    dev = images_u8.device
+    img = int(torch.randint(0, images_u8.shape[0], (1,), generator=generator, device=dev))
+    rays_o, rays_d = image_rays(H, W, intrinsics, poses[img])
+    rays_o, rays_d = rays_o.contiguous(), rays_d.contiguous()
+    targets = images_u8[img].float().reshape(-1, 3) / 255.0
+    leaves = tree_leaves(state.params)
+    g_sum = [torch.zeros_like(leaf) for leaf in leaves]
+    se_c = torch.zeros((), device=dev)
+    se_f = torch.zeros((), device=dev)
+    n = H * W
+    for t0 in range(0, n, tile):
+        sl = slice(t0, t0 + tile)
+        try:
+            out = render_rays(state.params, rays_o[sl], rays_d[sl], opts, grid=grid,
+                              generator=generator, train=True)
+            tile_c = torch.sum((out["rgb_map_0"] - targets[sl]) ** 2)
+            tile_f = (torch.sum((out["rgb_map"] - targets[sl]) ** 2) if "rgb_map" in out
+                      else torch.zeros_like(tile_c))
+            # a model that the loss does not reach (the fine MLP without a
+            # fine pass) gets zeros, as jax.grad gives
+            grads = torch.autograd.grad(tile_c + tile_f, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        except torch.cuda.OutOfMemoryError as e:
+            points = min(tile, n - t0) * (opts.n_samples * 2 + opts.n_importance)
+            total = torch.cuda.get_device_properties(dev).total_memory
+            raise MemoryError(
+                f"train_full_image: a tile of {min(tile, n - t0)} rays ({points} MLP points with "
+                f"the fine pass's) does not fit in {total / 2**30:.1f} GiB of device memory "
+                f"(peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB before it "
+                "failed); set render_tile_rays lower") from e
+        with torch.no_grad():
+            for acc, g in zip(g_sum, grads):
+                acc += g
+        se_c += tile_c.detach()
+        se_f += tile_f.detach()
+    denom = float(n * 3)
+    grads = [g / denom for g in g_sum]
+    loss_coarse, loss_fine = se_c / denom, se_f / denom
+    psnr_mse = torch.where(loss_fine > 0, loss_fine, loss_coarse)
+    tx.step(leaves, grads, state.opt_state)
+    state.step += 1
+    return {"loss": loss_coarse + loss_fine, "loss_coarse": loss_coarse, "loss_fine": loss_fine,
+            "psnr": -10.0 * torch.log10(psnr_mse)}

@@ -51,6 +51,15 @@ Tolerances (as chip_smoke.py states them):
   carry the gradient (292 of 16,384 coarse samples here) one flip moved a
   leaf by 11% on this test's first run; bf16's own distance from float32
   bounds flips of that kind;
+- the float32 kernels (B1-f32, B2-f32), as chip_smoke.py and
+  nerf_tpu_torch/tools/f32_check.py bound them: the forward's largest
+  |k - p| / (1 + |p|) over every size checked within 2x that of the plain
+  version summed in float32 against float64; the backward per leaf within
+  2e-4 max|want| + 1e-6 (dpts, ddirs 1e-3 of their largest), the knife-edge
+  points' cotangents zeroed on both sides (float64 margins); a prefix
+  alone and inside a larger launch, and two launches: exact; a train step
+  through them against the plain float32 path with the same fine samples
+  and masking: loss within 1e-5 relative, every leaf as the backward;
 - the evaluation slice: B1 on compacted [cap, 1, 3] batches as on the
   persistent tiles (largest error within max(5e-2, 2x the float64 plain
   version's)); a marched block through the kernels at PSNR >= 40 dB from
@@ -203,10 +212,10 @@ def test_fused_kernel_rejects_what_it_cannot_take(lego, cuda):
     pts, d = _points(8, 0, cuda)
     with pytest.raises(ValueError, match="wbuf"):  # weights left on the CPU
         fused_mlp.fused_nerf_eval(kp, pts, d)
-    kp32 = {k: v.to(cuda) for k, v in
-            fused_mlp.repack_params(lego["coarse"], weight_dtype=torch.float32).items()}
-    with pytest.raises(ValueError, match="wbuf"):  # the kernel reads bf16 only
-        fused_mlp.fused_nerf_eval(kp32, pts, d)
+    kp16 = {k: v.to(cuda) for k, v in
+            fused_mlp.repack_params(lego["coarse"], weight_dtype=torch.float16).items()}
+    with pytest.raises(ValueError, match="wbuf"):  # the kernels read bf16 or float32 only
+        fused_mlp.fused_nerf_eval(kp16, pts, d)
     kp = {k: v.to(cuda) for k, v in kp.items()}
     with pytest.raises(ValueError, match="pts"):
         fused_mlp.fused_nerf_eval(kp, pts.double(), d)
@@ -700,3 +709,133 @@ def test_blender_tensors_reach_the_card_unchanged(cuda, tmp_path):
     for host in (u8, torch.from_numpy(ds.images), torch.from_numpy(ds.poses),
                  torch.from_numpy(ds.K)):
         assert torch.equal(host.to(cuda).cpu(), host)
+
+
+# phase (a) of chip_smoke.py: ragged tiles of 64 points, a ragged end and
+# the lego step's fine batch
+F32_SIZES = [1, 63, 64, 127, 128, 129, 65553, 196608]
+
+
+def _kp32(lego, cuda, model="fine"):
+    return {k: v.to(cuda) for k, v in
+            fused_mlp.repack_params(lego[model], weight_dtype=torch.float32).items()}
+
+
+@pytest.mark.cuda
+def test_f32_forward_matches_plain(lego, cuda):
+    from nerf_tpu_torch.tools import f32_check
+
+    kp = _kp32(lego, cuda)
+    errs = []
+    for n in F32_SIZES:
+        pts, d = _points(n, n + 3, cuda)
+        before = fused_mlp.fused_nerf_eval_f32.launches
+        errs.append(f32_check.forward_errors(kp, pts, d))
+        assert fused_mlp.fused_nerf_eval_f32.launches == before + 1
+    assert max(e[0] for e in errs) <= 2.0 * max(e[1] for e in errs), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", F32_SIZES)
+def test_f32_backward_matches_plain(lego, cuda, n):
+    from nerf_tpu_torch.tools import f32_check
+
+    kp = _kp32(lego, cuda)
+    pts, d = _points(n, n + 4, cuda)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 4)).astype(np.float32)).to(cuda)
+    before = fused_mlp_bwd.fused_nerf_bwd_f32.launches
+    res = f32_check.backward_errors(kp, pts, d, g)
+    assert fused_mlp_bwd.fused_nerf_bwd_f32.launches == before + 1
+    assert res["worst"] <= 1.0, res
+    got = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    no_inputs = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g, input_grads=False)
+    assert no_inputs[1] is None and no_inputs[2] is None
+    for k in fused_mlp_bwd._GRAD_KEYS:  # the same launches, without the input gradients
+        assert torch.equal(no_inputs[0][k], got[0][k]), k
+
+
+@pytest.mark.cuda
+def test_f32_kernels_are_deterministic_and_rowwise(lego, cuda):
+    """Two launches of each give the same bits; a prefix launched alone is
+    the same rows of a larger launch (raw, dpts, ddirs); B2-f32's recomputed
+    forward is B1-f32's output bit for bit (the same kernel code), and
+    chunked launches equal one launch in every row and, per leaf, within
+    the backward's bound (the chunks' sums are added in another order)."""
+    kp = _kp32(lego, cuda)
+    pts, d = _points(84525, 5, cuda)
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=(84525, 4)).astype(np.float32)).to(cuda)
+    full = fused_mlp.fused_nerf_eval(kp, pts, d)
+    assert torch.equal(full, fused_mlp.fused_nerf_eval(kp, pts, d))
+    a = fused_mlp_bwd.launch_f32(kp, pts, d, g)
+    b = fused_mlp_bwd.launch_f32(kp, pts, d, g)
+    assert torch.equal(a["raw"], full)
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        assert torch.equal(a["kgrads"][k], b["kgrads"][k]), k
+    assert torch.equal(a["dpts"], b["dpts"]) and torch.equal(a["ddirs"], b["ddirs"])
+    for n in (1, 63, 64, 127, 128, 129, 65553):
+        part = fused_mlp.fused_nerf_eval(kp, pts[:n].contiguous(), d[:n].contiguous())
+        assert torch.equal(part, full[:n]), n
+        pb = fused_mlp_bwd.fused_nerf_bwd(kp, pts[:n].contiguous(), d[:n].contiguous(),
+                                          g[:n].contiguous())
+        assert torch.equal(pb[1], a["dpts"][:n]) and torch.equal(pb[2], a["ddirs"][:n]), n
+    c = fused_mlp_bwd.launch_f32(kp, pts, d, g, chunk=8192)
+    assert torch.equal(c["raw"], full) and torch.equal(c["dpts"], a["dpts"])
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        want = a["kgrads"][k]
+        assert float((c["kgrads"][k] - want).abs().max()) <= 2e-4 * float(want.abs().max()) + 1e-6, k
+
+
+@pytest.mark.cuda
+def test_f32_train_step_kernels_match_plain(cuda):
+    """One lego step with float32 weights through B1-f32, B2-f32 and B3
+    against the plain float32 path, the same batch, fine samples and
+    knife-edge masking: loss within 1e-5 relative, every gradient leaf
+    within 2e-4 of its largest |value| + 1e-6."""
+    from nerf_tpu_torch.tools import f32_check
+    from nerf_tpu_torch.train import loop
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import init_state, sample_ray_batch
+
+    cfg = make_cfg(os.path.join(ROOT, "configs/nerf/lego.yaml"),
+                   ["occupancy_grid_resolution", "32", "network.dtype", "float32"])
+    opts = RenderOptions.from_cfg(cfg)
+    template = init_state(loop.init_nerf_params(torch.Generator().manual_seed(0), opts, cuda),
+                          make_optimizer(cfg))
+    state = load_checkpoint(LEGO, template)[0]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    imgs = torch.randint(0, 256, (2, 32, 32, 3), generator=gen, device=cuda, dtype=torch.uint8)
+    poses = torch.as_tensor(np.stack([look_at_pose(t, 0.3, 4.0) for t in (0.5, 2.0)]),
+                            device=cuda)
+    K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], device=cuda)
+    ro, rd, tgt = sample_ray_batch(gen, imgs, poses, K, 256)
+    before = (fused_mlp.fused_nerf_eval_f32.launches, fused_mlp_bwd.fused_nerf_bwd_f32.launches)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    (lk, gk), (lp, gp) = f32_check.step_pair(state.params, ro, rd, tgt, opts, None, gen, plain)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_nerf_eval_f32.launches == before[0] + 2
+    assert fused_mlp_bwd.fused_nerf_bwd_f32.launches == before[1] + 2
+    assert abs(float(lk) - float(lp)) <= 1e-5 * abs(float(lp))
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        assert float((a - b).abs().max()) <= 2e-4 * float(b.abs().max()) + 1e-6, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_viewdirs", [True, False])
+def test_other_shape_renders_through_integrate(cuda, use_viewdirs):
+    """A D=4 W=64 frequency NeRF (plain MLP, as JAX's XLA path) rendered with
+    B3 against B3's plain version: PSNR >= 40 dB."""
+    from nerf_tpu_torch.train import loop
+
+    opts = RenderOptions(mlp_depth=4, mlp_width=64, skips=(2,), xyz_freqs=6, dir_freqs=2,
+                         use_viewdirs=use_viewdirs, enable_ess=False, tile_rays=1024,
+                         perturb=0.0)
+    tree = loop.init_nerf_params(torch.Generator().manual_seed(3), opts, cuda)
+    kp = kernel_params(tree, opts, cuda)
+    K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], device=cuda)
+    pose = torch.as_tensor(look_at_pose(0.5, 0.3, 4.0), device=cuda)
+    before = tint.integrate.launches
+    got = rend.render_image(kp, pose, K, 32, 32, opts)["rgb_map"]
+    assert tint.integrate.launches > before
+    want = rend.render_image(kp, pose, K, 32, 32,
+                             dataclasses.replace(opts, use_integrate_kernel=False))["rgb_map"]
+    assert _psnr(got, want) >= 40.0

@@ -40,15 +40,10 @@ from nerf_tpu.render.renderer import RenderOptions as JaxRenderOptions
 from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd
 from nerf_tpu_torch.tree import tree_flatten, tree_map
 
-# Rounding margin of a ReLU pre-activation z = sum_i w_i h_i + b in float32:
-# KNIFE_EDGE_C * 2^-24 * (sum_i |w_i h_i| + |b|). A blocked float32 dot
-# product of K <= 319 terms (layer 5) errs by about sqrt(K) * 2^-24 of that
-# sum (<= 18 units; K * 2^-24 at worst), and the inputs carry in their own
-# rounding from up to eight layers below and from sin/cos of the exact
-# float32 phases (a few units each, of the same magnitudes). 64 is well
-# above the typical total and zeroes 28 of the 640 points of _inputs(640, 7)
-# (the worst case, C = K, would zero 98).
-KNIFE_EDGE_C = 64.0
+# the margins and the constant (64) are the port's own, which the card's
+# float32 kernel checks use too: fused_mlp_bwd.KNIFE_EDGE_C; it zeroes 28 of
+# the 640 points of _inputs(640, 7) (the worst case, C = K, would zero 98)
+KNIFE_EDGE_C = fused_mlp_bwd.KNIFE_EDGE_C
 MAX_ZEROED_SHARE = 0.10
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 TOL = {"float32": (2e-4, 1e-3), "bfloat16": (3e-2, 3e-2)}
@@ -72,41 +67,14 @@ def _inputs(n, seed):
 
 
 def _relu_margins(kp, pts, dirs):
-    """[(layer, z, s)] for every ReLU layer of the plain forward (pts
-    layers 0-7 and the view layer "v"), in float64 from the float32 weights
-    ``kp`` and the float32 phases: z the pre-activations [P, units], s the
-    sums of |w_i h_i| + |b|."""
-    f64 = torch.float64
-    w = {k: v.to(f64) for k, v in kp.items()}
-    x, dd = (torch.from_numpy(a).to(f64) for a in (pts, dirs))
-    a = fused_mlp._phases(torch.from_numpy(pts), kp["sx"]).to(f64)
-    b = fused_mlp._phases(torch.from_numpy(dirs), kp["sd"]).to(f64)
-
-    def lin(terms, bias):
-        z = sum(h @ w[k] for h, k in terms) + w[bias]
-        s = sum(h.abs() @ w[k].abs() for h, k in terms) + w[bias].abs()
-        return z, s
-
-    enc = [(x, "w0x"), (a.sin(), "w0s"), (a.cos(), "w0c")]
-    out = [(0, *lin(enc, "b0"))]
-    for i in (1, 2, 3, 4):
-        out.append((i, *lin([(out[-1][1].clamp_min(0), f"w{i}")], f"b{i}")))
-    enc5 = [(h, k.replace("0", "5")) for h, k in enc]
-    out.append((5, *lin(enc5 + [(out[-1][1].clamp_min(0), "w5h")], "b5")))
-    for i in (6, 7):
-        out.append((i, *lin([(out[-1][1].clamp_min(0), f"w{i}")], f"b{i}")))
-    feat = out[-1][1].clamp_min(0) @ w["wf"] + w["bf"]
-    view = [(feat, "wvf"), (dd, "wvx"), (b.sin(), "wvs"), (b.cos(), "wvc")]
-    out.append(("v", *lin(view, "bv")))
-    return out
+    """[(layer, z, s)] of fused_mlp_bwd.relu_margins on numpy inputs."""
+    return fused_mlp_bwd.relu_margins(kp, torch.from_numpy(pts), torch.from_numpy(dirs))
 
 
 def _knife_edge_points(kp, pts, dirs, c=KNIFE_EDGE_C):
     """bool [P]: points with a ReLU unit within c * 2^-24 * s of zero."""
-    hit = torch.zeros(pts.shape[0], dtype=torch.bool)
-    for _, z, s in _relu_margins(kp, pts, dirs):
-        hit |= (z.abs() < c * 2.0 ** -24 * s).any(dim=1)
-    return hit.numpy()
+    return fused_mlp_bwd.knife_edge_points(kp, torch.from_numpy(pts), torch.from_numpy(dirs),
+                                           c).numpy()
 
 
 def _assert_grads(got, want, tol, what):

@@ -48,3 +48,28 @@ EVAL_SLICE = ["nerf_tpu_torch/utils/png.py", "nerf_tpu_torch/utils/profiling.py"
 def test_the_evaluation_slice_is_scanned(path):
     assert path in FILES
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
+# the float32 slice's modules: each is found by the scan above
+F32_SLICE = ["nerf_tpu_torch/tools/f32_check.py", "nerf_tpu_torch/ops/fused_mlp.py",
+             "nerf_tpu_torch/ops/fused_mlp_bwd.py", "nerf_tpu_torch/train/state.py",
+             "nerf_tpu_torch/models/nerf_mlp.py", "nerf_tpu_torch/render/renderer.py"]
+
+
+@pytest.mark.parametrize("path", F32_SLICE)
+def test_the_float32_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
+CSRC = sorted(f for f in os.listdir(os.path.join(ROOT, "nerf_tpu_torch", "csrc"))
+              if f.endswith((".cu", ".cuh")))
+
+
+@pytest.mark.parametrize("name", CSRC)
+def test_kernel_sources_include_no_pytorch_header(name):
+    """Each CUDA source builds with plain nvcc in seconds: no PyTorch header."""
+    text = open(os.path.join(ROOT, "nerf_tpu_torch", "csrc", name)).read()
+    assert "fused_mlp_f32.cuh" in CSRC and "fused_mlp_bwd_f32.cu" in CSRC
+    for header in ("torch/", "ATen/", "c10/", "pybind11"):
+        assert f"#include <{header}" not in text, header

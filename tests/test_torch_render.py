@@ -189,12 +189,18 @@ def test_golden_image_through_bridged_jax_init():
 
 
 def test_kernel_params_refuse_float32_weights_for_the_cuda_kernel(lego):
-    """The CUDA kernel takes bfloat16 weights; float32 ones raise before any
+    """The CUDA kernels take bfloat16 and (since the float32 kernels) float32
+    weights; weights of a dtype with no kernel (float16) raise before any
     copy to the card, unless the plain version is asked for."""
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        kernel_params(lego, RenderOptions(compute_dtype="float32"), "cuda")
+    from nerf_tpu_torch.render.renderer import check_weight_dtype
+
+    with pytest.raises(NotImplementedError, match="bfloat16 or float32"):
+        kernel_params(lego, RenderOptions(compute_dtype="float16"), "cuda")
+    check_weight_dtype(RenderOptions(compute_dtype="float32"), torch.device("cuda"))
     kp = kernel_params(lego, RenderOptions(compute_dtype="float32", use_fused_mlp=False))
     assert kp["fine"]["wbuf"].dtype == torch.float32
+    kp = kernel_params(lego, RenderOptions(compute_dtype="float16", use_fused_mlp=False))
+    assert kp["fine"]["wbuf"].dtype == torch.float16
 
 
 def test_render_options_from_cfg_match_jax():
