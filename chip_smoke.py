@@ -117,11 +117,17 @@ Phases, each printed with its elapsed seconds:
      BLENDER_TRAIN_STEPS steps, an ESS rebuild and one validation on the val
      split (its "val psnr" line must appear, a skip warning fails); B1, B2
      and B3 launched; then --test on the checkpoint it wrote;
- 20. B1-f32 and B2-f32 (float32 weights, true float32 on the CUDA cores)
+ 20. B1-f32 and B2-f32 (float32 weights; B2-f32's weight gradients in
+     3xTF32 on the tensor cores, the rest float32 on the CUDA cores)
      against their float32 plain versions on random points at 1, 63, 64,
      127, 128, 129, 65,553 and 196,608 (the backward with the knife-edge
      points' cotangents zeroed on both sides), and every ragged prefix
-     launched alone against the same rows of the largest launch;
+     launched alone against the same rows of the largest launch; on the
+     196,608 points B2-f32's weight-gradient launch timed in turns with the
+     previous (fmaf) one, which it must beat, its four launches, both
+     bounds and their shares, and each leaf's distance from the plain
+     version summed in float64 beside the fmaf kernel's and the plain
+     version's in float32;
  21. the committed lego checkpoint served with network.dtype float32 at
      200x200 over HTTP (B1-f32 and B3 launched); its frame against the plain
      float32 path (>= 40 dB) and against the bf16 frame (printed); B1-f32 on
@@ -129,7 +135,10 @@ Phases, each printed with its elapsed seconds:
  22. the epoch-49 lego state trained with network.dtype float32 through the
      trainer's entry point (B1-f32, B2-f32, B3 launched); one step through
      the kernels against the plain float32 path with the same fine samples
-     and masking; B2-f32 on that step's inputs, and timed on its fine batch;
+     and masking, and that step's loss and gradients timed over 10 warm
+     calls; B2-f32 on that step's inputs, and timed on its fine batch as in
+     phase 20 (its weight gradients in turns with the fmaf ones, which they
+     must beat);
  23. a D=4, W=64, skips [2], 6/2-band NeRF, with and without view
      directions, trained through the entry point (its MLP in plain PyTorch,
      B3 launched) and served over HTTP; its frame through B3 against B3's
@@ -264,7 +273,9 @@ PEAK_BYTES = 3.35e12
 #   correct float32 forwards may decide such a unit either way, and one flip
 #   moves a whole leaf; a float32 train step with the same fine samples and
 #   masking: loss within 1e-5 relative, every leaf as the backward; a prefix
-#   launched alone: exact.
+#   launched alone: exact. B2-f32's weight gradients are 3xTF32 products on
+#   the tensor cores (hi hi + hi lo + lo hi, summed in float32 and promoted
+#   into a register sum every 256 points) and are held to the same bounds.
 # - one layer's product through the fused kernel's wgmma path (ring,
 #   descriptors, accumulator layout) against torch.matmul of the same bf16
 #   operands in float32: per element within 2^-14 sum |a w|: float32 sums of
@@ -1860,6 +1871,7 @@ def blender_train_phase(root, work, scene_dir, counters):
 F32_SIZES = RAGGED_SIZES + (196_608,)
 F32_N_TIMED = 8  # float32 requests in the timed window
 F32_TRAIN_STEPS = 10
+F32_STEP_REPS = 10  # warm float32 loss-and-gradient calls timed in phase 22
 F32_TRAIN_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "10",
                        "train_dataset.H", "800", "train_dataset.W", "800",
                        "network.dtype", "float32", "train.epoch", "51",
@@ -1886,6 +1898,62 @@ def _f32_counters():
 
     return {"fused_nerf_eval_f32": fused_mlp.fused_nerf_eval_f32,
             "fused_nerf_bwd_f32": fused_mlp_bwd.fused_nerf_bwd_f32, "integrate": tint.integrate}
+
+
+def f32_dw_turns(label, kp, pts, dirs, g):
+    """B2-f32 on one batch (no input gradients, as the train step calls it):
+    its weight-gradient launch (3xTF32, tensor cores) timed in turns with the
+    previous fmaf one (new, old, old, new; each CUDA events over 3 calls),
+    which it must beat; the whole backward and its four launches; the
+    weight gradients against the 3xTF32 bound and their byte floor, the
+    fmaf launch against the CUDA cores' bound, the whole backward against
+    the float32 bound and the bound with dW in 3xTF32; each leaf's distance
+    from the plain version summed in float64, the largest of the kernel's,
+    the fmaf kernel's and the plain version's in float32. Returns the times."""
+    from nerf_tpu_torch.ops import fused_mlp_bwd as fb
+    from nerf_tpu_torch.tools import f32_check
+
+    n = pts.shape[0]
+    new = fb.launch_f32(kp, pts, dirs, g, input_grads=False)
+    old = fb.fused_nerf_bwd_f32_fmaf(kp, pts, dirs, g, input_grads=False)
+    lib = fb._lib_f32()[0]
+
+    def timed(full, phases):
+        args = list(full["args"])
+        args[-2] = phases
+        return time_ms(lambda: lib.launch_fused_nerf_bwd_f32(*args), reps=3)
+
+    turns = {"new": [], "old": []}
+    for who in ("new", "old", "old", "new"):
+        turns[who].append(timed(new, 4) if who == "new" else
+                          timed(old, fb.F32_PHASE_DW_FMAF))
+    dw, dw_old = (sum(v) / len(v) for v in (turns["new"], turns["old"]))
+    t = {name: timed(new, ph) for name, ph in (("all", fb.F32_PHASES_ALL), ("forward + stash", 1),
+                                               ("chain", 2), ("weight gradients", 4),
+                                               ("reduce", 8))}
+    t["all, fmaf dW"] = timed(old, fb.F32_PHASES_FMAF)
+    splits = fb.f32_splits_for(min(n + (-n) % fb.F32_TILE, fb.F32_CHUNK))
+    tc, floor, fmaf = (f32_check.dw_bound_ms(n), f32_check.dw_byte_floor_ms(n, splits),
+                       f32_check.dw_fmaf_bound_ms(n))
+    b32, bmix = f32_check.bwd_bound_ms(n), f32_check.bwd_bound_ms(n, tf32_dw=True)
+    dist = f32_check.float64_distances(kp, pts, dirs, g, {
+        "B2-f32": lambda *a: fb.launch_f32(*a, input_grads=False)["kgrads"],
+        "fmaf dW": lambda *a: fb.fused_nerf_bwd_f32_fmaf(*a, input_grads=False)["kgrads"]})
+    log(f"B2-f32 dW on {label}, {n} pts, in turns: 3xTF32 {dw:.4f} ms "
+        f"({', '.join(f'{v:.4f}' for v in turns['new'])}) against the fmaf dW {dw_old:.4f} ms "
+        f"({', '.join(f'{v:.4f}' for v in turns['old'])}), {dw_old / dw:.2f}x; 3xTF32 bound "
+        f"{tc:.4f} ms at 495/3 TFLOP/s ({tc / dw:.3f}), byte floor {floor:.4f} ms "
+        f"({floor / dw:.3f}); the fmaf dW against 67 TFLOP/s {fmaf:.4f} ms ({fmaf / dw_old:.3f})")
+    log(f"B2-f32 on {label}: whole {t['all']:.4f} ms (with the fmaf dW {t['all, fmaf dW']:.4f}); "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k not in ("all", "all, fmaf dW"))
+        + f" ms; float32 bound {b32:.4f} ms ({b32 / t['all']:.3f}), bound with dW in 3xTF32 "
+        f"{bmix:.4f} ms ({bmix / t['all']:.3f})")
+    log(f"B2-f32 on {label}, largest leaf distance from the plain version in float64 "
+        f"(max|k - p64| / max|p64|, knife-edge points masked): "
+        + "; ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in dist.items()))
+    check(dw < dw_old, f"B2-f32's 3xTF32 weight gradients are not faster than the fmaf ones "
+          f"on {label}")
+    return t
 
 
 def f32_random_phase(params, dev):
@@ -1925,6 +1993,7 @@ def f32_random_phase(params, dev):
               f"B2-f32's input gradients on {m} points differ from a launch of {n}")
     log(f"B1-f32 and B2-f32 alone on {', '.join(map(str, RAGGED_SIZES))} points: exactly the "
         f"rows of the {n}-point launch")
+    f32_dw_turns("the random points", kp, pts, d, g)
     return fwd_errs, bwd_abs
 
 
@@ -1988,9 +2057,9 @@ def f32_train_phase(root, work, data, grid, dev):
     kernels against the plain float32 path with the same fine samples and
     the knife-edge points masked (loss within 1e-5 relative, every leaf
     within B2-f32's bound); B2-f32 on that step's coarse and fine inputs
-    against its plain version, and timed on the fine batch with its four
-    launches, its bound, the plain version and a float32 torch.matmul
-    chain's autograd. Returns (the kernel's entry, the path's launches)."""
+    against its plain version, and timed on the fine batch (``f32_dw_turns``)
+    beside its bound, the plain version and a float32 torch.matmul chain's
+    autograd. Returns (the kernel's entry, the path's launches)."""
     import torch
     from nerf_tpu_torch.config import make_cfg
     from nerf_tpu_torch.ops import fused_mlp_bwd as fb
@@ -2038,6 +2107,10 @@ def f32_train_phase(root, work, data, grid, dev):
         f"worst gradient leaf {worst[1]} at {worst[0]:.3g} of its bound")
     check(loss_rel <= 1e-5, "float32 train step loss disagrees")
     check(worst[0] <= 1.0, "float32 train step gradients disagree")
+    step_ms = time_ms(lambda: loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen),
+                      reps=F32_STEP_REPS)
+    log(f"float32 train step's loss and gradients (the step but Adam's update), "
+        f"{F32_STEP_REPS} warm calls: {step_ms:.3f} ms each")
     bwd_abs = 0.0
     for label, (kp, pts, dirs, g) in zip(("coarse", "fine"), seen):
         b = f32_check.backward_errors(kp, pts, dirs, g, input_grads=False)
@@ -2046,25 +2119,16 @@ def f32_train_phase(root, work, data, grid, dev):
             f"{b['worst']:.3g} of its bound, {b['masked']} knife-edge points zeroed")
         check(b["worst"] <= 1.0, f"B2-f32 disagrees with its plain version on the {label} batch")
     kp, pts, dirs, g = seen[1]
-    full = fb.launch_f32(kp, pts, dirs, g, input_grads=False)
-    lib = fb._lib_f32()[0]
-    times = {}
-    for name, phases in (("all", fb.F32_PHASES_ALL), ("forward + stash", 1), ("chain", 2),
-                         ("weight gradients", 4), ("reduce", 8)):
-        args = list(full["args"])
-        args[-2] = phases
-        times[name] = time_ms(lambda: lib.launch_fused_nerf_bwd_f32(*args), reps=3)
+    times = f32_dw_turns("the step's fine batch", kp, pts, dirs, g)
     plain_ms = time_ms(lambda: fb.fused_nerf_bwd_plain(kp, pts, dirs, g, input_grads=False),
                        reps=2)
     chain_ms = time_ms(lambda: f32_check.matmul_chain_f32_bwd(kp, pts, dirs, g), reps=2)
     n = pts.shape[0]
-    bound = f32_check.bwd_bound_ms(n)
-    log(f"B2-f32 on the step's fine batch, {n} pts: {times['all']:.4f} ms ({bound / times['all']:.3f} "
-        f"of the bound {bound:.4f} ms at 67 TFLOP/s float32); launches "
-        + ", ".join(f"{k} {v:.4f}" for k, v in times.items() if k != "all")
-        + f" ms; plain {plain_ms:.4f} ms; yardstick: a float32 torch.matmul chain and its "
-        f"autograd (full float32) {chain_ms:.4f} ms; scratch "
-        f"{(full['stash_slabs'].numel() + full['gbuf_slabs'].numel()) * 4 / 2**30:.2f} GiB")
+    bound = f32_check.bwd_bound_ms(n, tf32_dw=True)
+    log(f"B2-f32 on the step's fine batch, {n} pts: {times['all']:.4f} ms "
+        f"({bound / times['all']:.3f} of the bound {bound:.4f} ms: dW at 495/3 TFLOP/s, the rest "
+        f"at 67 TFLOP/s float32); plain {plain_ms:.4f} ms; yardstick: a float32 torch.matmul "
+        f"chain and its autograd (full float32) {chain_ms:.4f} ms")
     return {"name": "fused_nerf_bwd_f32", "route": "cuda",
             "source": "nerf_tpu_torch/csrc/fused_mlp_bwd_f32.cu",
             "replaces": "nerf_tpu/ops/fused_mlp_bwd.py:43", "max_abs_err": bwd_abs,

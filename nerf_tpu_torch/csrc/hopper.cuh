@@ -1,7 +1,9 @@
-// PTX helpers shared by the Hopper (sm_90a) kernels of fused_mlp.cu and
-// fused_mlp_bwd.cu: mbarriers, 1-D bulk asynchronous copies in both
-// directions, named barriers, shared-memory matrix descriptors and the
-// wgmma products (bf16 x bf16 -> f32) with their fences.
+// PTX helpers shared by the Hopper (sm_90a) kernels of fused_mlp.cu,
+// fused_mlp_bwd.cu and fused_mlp_bwd_f32.cu: mbarriers, 1-D bulk
+// asynchronous copies in both directions, 3-D tensor-map (TMA) loads, named
+// barriers, shared-memory matrix descriptors (no swizzle, and the 128-byte
+// swizzle), the wgmma products (bf16 x bf16 -> f32, and TF32 x TF32 -> f32
+// with A from registers) with their fences, and TF32 rounding.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -221,6 +223,58 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[R], uint64_t da, uint64_t 
     static_assert(N == 32, "wgmma widths used here: 256, 128, 64, 32");
     wgmma_n32<TA, TB>(d, da, db, scale_d);
   }
+}
+
+// One box of a 3-D tensor map (TMA), global -> shared, coordinates
+// innermost first; its bytes complete on bar. tmap is the generic address of
+// a __grid_constant__ CUtensorMap parameter.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];"
+      :
+      : "r"(smem_addr(dst)), "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// the bits of a float whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle (what a TMA box with CU_TENSOR_MAP_SWIZZLE_128B writes): rows of
+// 128 bytes (32 TF32 values along K), 8 rows a 1024-byte atom whose 16-byte
+// chunks are permuted by chunk ^ (row % 8); sbo = 1024 bytes between the
+// atoms of 8 rows, lbo unused. The atom must start 1024-byte aligned; the
+// k-th 8-value step along K starts 32 k bytes further.
+__device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// d[64 x 128] (+)= A[64 x 8] B[8 x 128], TF32 in, f32 sums; A from registers
+// (the m16n8k8 TF32 fragment of each warp's 16 rows: a[0] (row lane/4,
+// k lane%4), a[1] row + 8, a[2] k + 4, a[3] both), B K-major in shared
+// memory (db); scale_d = 0 starts the sum at zero.
+template <int R>
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[R], const uint32_t (&a)[4],
+                                                uint64_t db, int scale_d) {
+  static_assert(R >= 64, "m64n128 needs 64 accumulator registers");
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+      : ACC64(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(db));
 }
 
 #undef ACC64

@@ -182,20 +182,44 @@ def stash_activations(kp: Dict[str, torch.Tensor], stash: torch.Tensor, pts: tor
 
 def fused_nerf_bwd_plain(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
                          g: torch.Tensor, accumulate: torch.dtype = torch.float32,
-                         input_grads: bool = True
+                         input_grads: bool = True, tf32: bool = False
                          ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor],
                                     Optional[torch.Tensor]]:
     """The kernels' math in plain PyTorch. pts, dirs [P, 3], g [P, 4] (the
     gradient of raw [P, 4]) -> ({key: f32 grad}, dpts, ddirs [P, 3] or None).
     ``accumulate`` float64 sums every product in another order, which shows
-    how far bf16 rounding alone moves the gradients."""
+    how far bf16 rounding alone moves the gradients. ``tf32`` (float32
+    weights) forms the weight gradients as the float32 kernel's tensor cores
+    do, ``dw_3xtf32_plain``."""
     return backward_from_activations(kp, plain_activations(kp, pts, dirs, accumulate), g,
-                                     accumulate, input_grads)
+                                     accumulate, input_grads, tf32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (float32) = hi + lo to about 2^-22 of |x|: hi is x rounded to TF32
+    (10 mantissa bits, to nearest, ties away from zero: ``cvt.rna.tf32.f32``),
+    lo is x - hi (exact in float32) rounded the same way."""
+    def rna(v):  # add half of the 13 dropped bits to the magnitude, then drop them
+        return ((v.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def dw_3xtf32_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """x [P, K]^T @ g [P, N] -> float32 [K, N] as the float32 kernel's
+    weight gradients form it (3xTF32): hi_x hi_g + hi_x lo_g + lo_x hi_g,
+    each product of two TF32 values exact and summed here in float64 (the
+    card sums in float32)."""
+    xh, xl = (t.double() for t in tf32_split(x))
+    gh, gl = (t.double() for t in tf32_split(g))
+    return (xh.T @ gh + xh.T @ gl + xl.T @ gh).float()
 
 
 def backward_from_activations(kp: Dict[str, torch.Tensor], acts: Dict[str, torch.Tensor],
                               g: torch.Tensor, accumulate: torch.dtype = torch.float32,
-                              input_grads: bool = True):
+                              input_grads: bool = True, tf32: bool = False):
     """The backward half of ``fused_nerf_bwd_plain``, given the forward's
     activations (``plain_activations`` or ``stash_activations``)."""
     wdt = kp["w1"].dtype
@@ -207,6 +231,8 @@ def backward_from_activations(kp: Dict[str, torch.Tensor], acts: Dict[str, torch
         return gr @ w.to(accumulate).T
 
     def dw(x, gr):  # x[P, K]^T @ gr[P, N] -> [K, N]
+        if tf32:
+            return dw_3xtf32_plain(x, gr)
         return (rnd(x).T @ gr).float()
 
     def colsum(gr):
@@ -553,35 +579,168 @@ def _lib():
 
 # The float32 backward (csrc/fused_mlp_bwd_f32.cu): its scratch is ~19.8 KB
 # a point (a float32 stash of the activations and gbuf of the layer
-# gradients), so it runs on chunks of at most F32_CHUNK points (5.2 GB); the
-# weight gradients of a chunk are summed over F32_SPLITS point ranges (one per
-# 64 tiles of 64 points, at most 16), then added to the chunks' before.
+# gradients), so it runs on chunks of at most F32_CHUNK points (5.2 GB). The
+# weight gradients of a chunk are summed over F32_SPLITS point ranges (at
+# most one per F32_MIN_TILES_PER_SPLIT tiles of 64 points), then added to
+# the chunks' before. A range's units (dw_units) hold the work of 36 full
+# units; 33 ranges ran the lego fine batch's weight gradients fastest on an
+# H100 (tools/bwd_f32_variants.py --splits: 2.64 ms, against 3.01-3.03 with
+# 11 and 2.72-2.77 with 16, 22, 44 and 66).
 F32_TILE = 64
 F32_CHUNK = 1 << 18
-F32_MAX_SPLITS, F32_TILES_PER_SPLIT = 16, 64
-F32_PHASES_ALL = 15  # forward + stash, chain, weight gradients, reduce
+F32_SPLITS, F32_MIN_TILES_PER_SPLIT = 33, 8
+F32_PHASES_ALL = 15  # forward + stash, chain, weight gradients (3xTF32), reduce
+# the previous weight gradients (fmaf, one block per 128 x 128 tile and
+# range) in place of the 3xTF32 ones, with their own ranges: for comparison
+F32_PHASE_DW_FMAF = 16
+F32_PHASES_FMAF = F32_PHASES_ALL - 4 + F32_PHASE_DW_FMAF
+F32_FMAF_MAX_SPLITS, F32_FMAF_TILES_PER_SPLIT = 16, 64
 
 
 def f32_splits_for(n_points: int) -> int:
-    return max(1, min(F32_MAX_SPLITS, (n_points // F32_TILE) // F32_TILES_PER_SPLIT))
+    return max(1, min(F32_SPLITS, (n_points // F32_TILE) // F32_MIN_TILES_PER_SPLIT))
+
+
+def f32_fmaf_splits_for(n_points: int) -> int:
+    """The ranges the fmaf weight gradients were launched with."""
+    return max(1, min(F32_FMAF_MAX_SPLITS, (n_points // F32_TILE) // F32_FMAF_TILES_PER_SPLIT))
+
+
+# Layout of the float32 kernels' buffers (csrc/fused_mlp_f32.cuh,
+# csrc/fused_mlp_bwd_f32.cu), in floats: stash and gbuf columns, wbuf and
+# bbuf offsets of the flat gradient (biases from WBUF_SIZE on).
+_W, _VW, _EX, _ED = 256, 128, 64, 32
+_S_X, _S_FEAT, _S_D = 0, _EX + 8 * _W, _EX + 9 * _W
+_S_V = _S_D + _ED
+_G_F, _G_V = 8 * _W, 9 * _W
+_G_IN = _G_V + _VW
+_OFF_L5 = _EX * _W + 4 * _W * _W
+_OFF_LF = _OFF_L5 + (_EX + _W) * _W + 2 * _W * _W
+_OFF_LV = _OFF_LF + _W * _W
+_OFF_WA = _OFF_LV + (_W + _ED) * _VW
+_OFF_WR = _OFF_WA + _W
+_OFF_BF, _OFF_BV = 8 * _W, 9 * _W
+_OFF_BA = _OFF_BV + _VW
+
+
+def _s_h(i):
+    return _EX + (i - 1) * _W
+
+
+def _off_layer(i):  # trunk layers 1-4, 6, 7
+    if i <= 4:
+        return _EX * _W + (i - 1) * _W * _W
+    return _OFF_L5 + (_EX + _W) * _W + (i - 6) * _W * _W
+
+
+# a row of the unit table, as csrc/fused_mlp_bwd_f32.cu's DwUnit
+DW_UNIT_FIELDS = ("kind", "xcol", "xlines", "gcol", "glines", "x0", "x1", "g0", "g1", "out0",
+                  "out1", "ld", "rows", "nsplit", "bias")
+DW_PRODUCTS, DW_HEADS, DW_VIEW_RGB, DW_KSPLIT = 0, 1, 2, 3
+
+
+def dw_units(fold_bias: bool = True) -> np.ndarray:
+    """The float32 weight gradients' work units, int32 [units, 15]. A unit
+    holds two 64-row x 128-column product slices, one per consumer
+    warpgroup, of one gradient matrix: the 128 x 128 quarters of each
+    256-wide layer and the view layer's 128-row feature slices. Layer 0's
+    and the skip layer's 64 encoding rows, in 128-column halves, and the view
+    layer's 32 direction rows are one slice each, their points shared by the
+    two warpgroups (DW_KSPLIT). A layer's bias gradient (the column sums of
+    its G) rides on the units whose rows start at 0. wr, and wa with ba and
+    br, are two small units on the CUDA cores. With ``fold_bias`` False (a
+    variant for comparison) the biases are units of their own."""
+    wb = WBUF_SIZE
+    rows = []
+
+    def unit(kind, xcol, xlines, gcol, glines, x, g, out, ld, nrows, nsplit, bias):
+        if not fold_bias and kind in (DW_PRODUCTS, DW_KSPLIT):
+            bias = -1
+        rows.append([kind, xcol, xlines, gcol, glines, *x, *g, *out, ld, nrows, nsplit, bias])
+
+    def enc64(gcol, out, bias):  # 64 encoding rows x 256 columns, in halves
+        for n0 in (0, 128):
+            unit(DW_KSPLIT, _S_X, 64, gcol + n0, 128, (0, 0), (0, 0), (out + n0, out + n0), _W,
+                 64, 128, bias + n0)
+
+    def x128(xcol, gcol, out, n, bias):  # 128-row slices of a K x n matrix, 128 columns each
+        for m0 in (0, 128):
+            for n0 in range(0, n, 128):
+                o = out + m0 * n + n0
+                unit(DW_PRODUCTS, xcol + m0, 128, gcol + n0, 128, (0, 64), (0, 0),
+                     (o, o + 64 * n), n, 64, 128, bias + n0 if bias >= 0 and m0 == 0 else -1)
+
+    # the kernel launches the units in this order: the small ones last
+    enc64(0, 0, wb)
+    enc64(5 * _W, _OFF_L5, wb + 5 * _W)
+    for i in (1, 2, 3, 4):
+        x128(_s_h(i), i * _W, _off_layer(i), _W, wb + i * _W)
+    x128(_s_h(5), 5 * _W, _OFF_L5 + _EX * _W, _W, -1)
+    for i in (6, 7):
+        x128(_s_h(i), i * _W, _off_layer(i), _W, wb + i * _W)
+    x128(_s_h(8), _G_F, _OFF_LF, _W, wb + _OFF_BF)
+    x128(_S_FEAT, _G_V, _OFF_LV, _VW, wb + _OFF_BV)
+    unit(DW_KSPLIT, _S_D, 32, _G_V, _VW, (0, 0), (0, 0), (_OFF_LV + _W * _VW,) * 2, _VW, _ED,
+         _VW, -1)
+    unit(DW_VIEW_RGB, _S_V, _VW, _G_IN, 32, (-1, 0), (0, 0), (0, _OFF_WR), 0, 0, 0, -1)
+    unit(DW_HEADS, _s_h(8), _W, _G_IN, 32, (-1, -1), (0, 0), (_OFF_WA, 0), 0, 0, 0,
+         wb + _OFF_BA)
+    if not fold_bias:  # 128 columns a unit, no product
+        for gcol, boff in [(i * _W + n0, i * _W + n0) for i in range(8) for n0 in (0, 128)] + [
+                (_G_F, _OFF_BF), (_G_F + 128, _OFF_BF + 128), (_G_V, _OFF_BV)]:
+            rows.append([DW_PRODUCTS, _S_X, 32, gcol, 128, -1, -1, 0, 0, 0, 0, 1, 1, 128,
+                         wb + boff])
+    return np.asarray(rows, dtype=np.int32)
+
+
+def dw_unit_entries(units: np.ndarray) -> np.ndarray:
+    """Every entry of a partial row that the units write, once per write, as
+    csrc/fused_mlp_bwd_f32.cu's dw_tf32_wgmma_kernel writes them."""
+    out = []
+    for row in units:
+        u = dict(zip(DW_UNIT_FIELDS, (int(v) for v in row)))
+        r, c = np.arange(u["rows"])[:, None], np.arange(128)[None, :]
+        if u["kind"] == DW_HEADS:
+            out += [u["out0"] + np.arange(_W), u["bias"] + np.arange(4)]
+            continue
+        if u["kind"] == DW_VIEW_RGB:
+            out.append(u["out1"] + np.arange(3 * _VW))
+            continue
+        for w in ((0,) if u["kind"] == DW_KSPLIT else (0, 1)):
+            if u[f"x{w}"] >= 0:
+                out.append((u[f"out{w}"] + r * u["ld"] + c).ravel())
+        if u["bias"] >= 0:
+            out.append(u["bias"] + np.arange(u["nsplit"]))
+    return np.concatenate(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _units_arg(fold_bias: bool = True):
+    """(the table as a C int array the launcher reads, its rows)."""
+    units = dw_units(fold_bias)
+    return (ctypes.c_int * units.size)(*units.ravel().tolist()), units.shape[0]
 
 
 def launch_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
                g: torch.Tensor, input_grads: bool = True, chunk: int = F32_CHUNK,
-               phases: int = F32_PHASES_ALL):
+               phases: int = F32_PHASES_ALL, splits: Optional[int] = None,
+               fold_bias: bool = True):
     """The float32 backward's launches on CUDA tensors (not counted:
     ``fused_nerf_bwd`` counts them). Returns {kgrads, dpts, ddirs, raw (the
     recomputed forward [P, 4]), stash_slabs ([tiles, SLD, 64] float32, of the
     last chunk), gbuf_slabs, args, keep}: ``_lib_f32()[0].launch_fused_nerf_bwd_f32(*args)``
     launches it again while ``keep`` lives; its last int but one selects the
-    launches (``F32_PHASES_ALL`` all four)."""
+    launches (``F32_PHASES_ALL`` all four; ``F32_PHASES_FMAF`` the previous
+    weight gradients instead of the tensor cores'). ``splits`` overrides the
+    point ranges of the weight gradients, ``fold_bias`` False takes the
+    units with the biases apart (comparisons only)."""
     P = _check_inputs(kp, pts, dirs, g, torch.float32)
     build.check_cuda("wbuf_t", kp["wbuf_t"], torch.float32, (WPACK_SIZE,), align=16)
     lib, sld, gld, pst = _lib_f32()
     pts, dirs, g = _pad(F32_TILE, pts, dirs, g)
     n = pts.shape[0]
     chunk = min(n, max(F32_TILE, chunk - chunk % F32_TILE))
-    splits = f32_splits_for(chunk)
+    splits = splits or f32_splits_for(chunk)
     dev = pts.device
     tiles = chunk // F32_TILE
     stash = torch.empty((tiles, sld, F32_TILE), dtype=torch.float32, device=dev)
@@ -591,35 +750,53 @@ def launch_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tenso
     raw = torch.empty((n, 4), dtype=torch.float32, device=dev)
     dpts = torch.empty((n, 3), dtype=torch.float32, device=dev) if input_grads else None
     ddirs = torch.empty((n, 3), dtype=torch.float32, device=dev) if input_grads else None
+    units, n_units = _units_arg(fold_bias)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = [pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), kp["wbuf"].data_ptr(),
             kp["bbuf"].data_ptr(), kp["wbuf_t"].data_ptr(), stash.data_ptr(), gbuf.data_ptr(),
-            partial.data_ptr(), flat.data_ptr(), raw.data_ptr(), ptr(dpts), ptr(ddirs), n,
-            chunk, splits, int(input_grads), phases, torch.cuda.current_stream(dev).cuda_stream]
+            partial.data_ptr(), flat.data_ptr(), raw.data_ptr(), ptr(dpts), ptr(ddirs),
+            ctypes.addressof(units), n, chunk, splits, n_units, int(input_grads), phases,
+            torch.cuda.current_stream(dev).cuda_stream]
     rc = lib.launch_fused_nerf_bwd_f32(*args)
     if rc != 0:
         raise RuntimeError(f"fused_nerf_bwd float32 kernel launch failed: CUDA error {rc}")
-    keep = (pts, dirs, g, stash, gbuf, partial, flat, raw, dpts, ddirs)
+    keep = (pts, dirs, g, stash, gbuf, partial, flat, raw, dpts, ddirs, units)
     return {"kgrads": _grads_of(flat, kp), "dpts": dpts[:P] if input_grads else None,
             "ddirs": ddirs[:P] if input_grads else None, "raw": raw[:P],
             "stash_slabs": stash, "gbuf_slabs": gbuf, "args": args, "keep": keep}
 
 
+def fused_nerf_bwd_f32_fmaf(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
+                            g: torch.Tensor, input_grads: bool = True, chunk: int = F32_CHUNK):
+    """B2-f32 with its previous weight gradients (fmaf on the CUDA cores, its
+    own point ranges), CUDA tensors only. No path of the port calls it: it is
+    what the GPU tests, ``chip_smoke.py`` and the variants tool hold the
+    tensor-core weight gradients against. Returns ``launch_f32``'s dict."""
+    n = pts.shape[0] + (-pts.shape[0]) % F32_TILE
+    return launch_f32(kp, pts, dirs, g, input_grads, chunk, F32_PHASES_FMAF,
+                      f32_fmaf_splits_for(min(n, chunk)))
+
+
 @functools.cache
 def _lib_f32():
     """(lib, SLD, GLD, PST) of the float32 backward's library."""
-    lib = build.load("fused_mlp_bwd_f32")
+    return bind_f32(build.load("fused_mlp_bwd_f32"))
+
+
+def bind_f32(lib: ctypes.CDLL):
+    """(lib, SLD, GLD, PST) of a loaded fused_mlp_bwd_f32 library, its
+    functions' argument types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.launch_fused_nerf_bwd_f32.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.launch_fused_nerf_bwd_f32.argtypes = [p] * 14 + [i] * 6 + [p]
     lib.launch_fused_nerf_bwd_f32.restype = ctypes.c_int
     lib.fused_nerf_bwd_f32_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
     lib.fused_nerf_bwd_f32_sizes.restype = None
     sizes = [ctypes.c_int() for _ in range(4)]
     lib.fused_nerf_bwd_f32_sizes(*(ctypes.byref(v) for v in sizes))
     sld, gld, pst, wt = (v.value for v in sizes)
-    if (pst, wt) != (WBUF_SIZE + BBUF_SIZE, WPACK_SIZE):
-        raise RuntimeError(f"fused_mlp_bwd_f32.cu sizes {(pst, wt)} differ from "
-                           f"{(WBUF_SIZE + BBUF_SIZE, WPACK_SIZE)}")
+    if (sld, gld, pst, wt) != (_S_V + _VW, _G_IN + 4, WBUF_SIZE + BBUF_SIZE, WPACK_SIZE):
+        raise RuntimeError(f"fused_mlp_bwd_f32.cu sizes {(sld, gld, pst, wt)} differ from "
+                           f"{(_S_V + _VW, _G_IN + 4, WBUF_SIZE + BBUF_SIZE, WPACK_SIZE)}")
     return lib, sld, gld, pst
 
 

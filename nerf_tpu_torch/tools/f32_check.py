@@ -35,6 +35,7 @@ import torch
 from ..ops import fused_mlp, fused_mlp_bwd as fb
 
 PEAK_F32 = 67e12  # H100 SXM, float32 on the CUDA cores (data sheet)
+PEAK_TF32 = 495e12  # its tensor cores in TF32, dense (data sheet)
 PEAK_BYTES = 3.35e12
 MACS_PER_POINT = 593_408
 FWD_OVER_PLAIN64 = 2.0
@@ -81,6 +82,25 @@ def backward_errors(kp, pts, dirs, g, input_grads=True):
         if err / tol >= worst:
             worst, leaf = err / tol, name
     return {"worst": worst, "leaf": leaf, "masked": int(edge.sum()), "abs": big}
+
+
+def float64_distances(kp, pts, dirs, g, runs):
+    """How far each backward in ``runs`` ({name: fn(kp, pts, dirs, g) ->
+    kgrads}) and the plain version in float32 lie from the plain version in
+    float64, the knife-edge points' cotangents zeroed for all: {name: (the
+    largest max|k - p64| / max|p64| over the gradient leaves, that leaf)},
+    "plain float32" among them."""
+    g = g.clone()
+    g[fb.knife_edge_points(kp, pts, dirs)] = 0
+    want = fb.fused_nerf_bwd_plain(kp, pts.double(), dirs.double(), g.double(), torch.float64,
+                                   input_grads=False)[0]
+    runs = {**runs, "plain float32": lambda *a: fb.fused_nerf_bwd_plain(*a, input_grads=False)[0]}
+    out = {}
+    for name, fn in runs.items():
+        got = fn(kp, pts, dirs, g)
+        out[name] = max((float((got[k].double() - want[k]).abs().max())
+                         / max(float(want[k].abs().max()), 1e-30), k) for k in fb._GRAD_KEYS)
+    return out
 
 
 @contextlib.contextmanager
@@ -237,14 +257,38 @@ def fwd_bound_ms(n_points):
     return max(n_points * 2 * MACS_PER_POINT / PEAK_F32, n_points * 40 / PEAK_BYTES) * 1e3
 
 
-def bwd_bound_ms(n_points, input_grads=False):
+def bwd_bound_ms(n_points, input_grads=False, tf32_dw=False):
     """The backward's least time: its multiply-adds at the float32 peak (the
     train step asks for no input gradients: 64x256, 64x256, 32x128 fewer a
-    point), or its inputs and outputs at the memory rate."""
+    point), or its inputs and outputs at the memory rate. ``tf32_dw``: the
+    weight gradients' share as 3xTF32 products at the TF32 peak
+    (``dw_bound_ms``), the rest at the float32 peak, as the kernel runs."""
     macs = BWD_MACS_PER_POINT - (0 if input_grads else 64 * 256 * 2 + 32 * 128)
-    return max(n_points * 2 * macs / PEAK_F32,
-               (n_points * (12 + 12 + 16) + 4 * (fused_mlp.WBUF_SIZE + fused_mlp.BBUF_SIZE))
+    ops = n_points * 2 * macs / PEAK_F32
+    if tf32_dw:
+        ops += dw_bound_ms(n_points) / 1e3 - n_points * 2 * MACS_PER_POINT / PEAK_F32
+    return max(ops, (n_points * (12 + 12 + 16) + 4 * (fused_mlp.WBUF_SIZE + fused_mlp.BBUF_SIZE))
                / PEAK_BYTES) * 1e3
+
+
+def dw_bound_ms(n_points):
+    """The weight gradients' least time on the tensor cores: a multiply-add
+    a weight and a point, three TF32 products each (3xTF32), at the TF32
+    peak."""
+    return n_points * 2 * MACS_PER_POINT * 3 / PEAK_TF32 * 1e3
+
+
+def dw_fmaf_bound_ms(n_points):
+    """The same multiply-adds as float32 fmaf at the CUDA cores' peak."""
+    return n_points * 2 * MACS_PER_POINT / PEAK_F32 * 1e3
+
+
+def dw_byte_floor_ms(n_points, splits):
+    """The weight-gradient launch's bytes: every stash and gbuf column of
+    every point read once (all 2,528 + 2,436 are some product's operand) and
+    its partial rows written once."""
+    pst = fused_mlp.WBUF_SIZE + fused_mlp.BBUF_SIZE
+    return (n_points * 4 * (2528 + 2436) + 4 * splits * pst) / PEAK_BYTES * 1e3
 
 
 def main() -> int:

@@ -60,6 +60,10 @@ Tolerances (as chip_smoke.py states them):
   alone and inside a larger launch, and two launches: exact; a train step
   through them against the plain float32 path with the same fine samples
   and masking: loss within 1e-5 relative, every leaf as the backward;
+  B2-f32's weight gradients on the tensor cores (3xTF32) against its
+  previous fmaf ones, per leaf within the same bound (two float32 sums of
+  the same products in other orders, each within it of the plain
+  version); a bad unit table raises;
 - the evaluation slice: B1 on compacted [cap, 1, 3] batches as on the
   persistent tiles (largest error within max(5e-2, 2x the float64 plain
   version's)); a marched block through the kernels at PSNR >= 40 dB from
@@ -752,6 +756,43 @@ def test_f32_backward_matches_plain(lego, cuda, n):
     assert no_inputs[1] is None and no_inputs[2] is None
     for k in fused_mlp_bwd._GRAD_KEYS:  # the same launches, without the input gradients
         assert torch.equal(no_inputs[0][k], got[0][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", F32_SIZES)
+def test_f32_tensor_core_dw_matches_fmaf(lego, cuda, n):
+    """The 3xTF32 weight gradients against the previous fmaf kernel's on the
+    same launches, the knife-edge points masked; only the former counts."""
+    kp = _kp32(lego, cuda)
+    pts, d = _points(n, n + 4, cuda)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 4)).astype(np.float32)).to(cuda)
+    g[fused_mlp_bwd.knife_edge_points(kp, pts, d)] = 0
+    before = fused_mlp_bwd.fused_nerf_bwd_f32.launches
+    old = fused_mlp_bwd.fused_nerf_bwd_f32_fmaf(kp, pts, d, g)
+    assert fused_mlp_bwd.fused_nerf_bwd_f32.launches == before
+    new = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
+    assert fused_mlp_bwd.fused_nerf_bwd_f32.launches == before + 1
+    assert torch.equal(new[1], old["dpts"]) and torch.equal(new[2], old["ddirs"])
+    for k in fused_mlp_bwd._GRAD_KEYS:
+        want = old["kgrads"][k]
+        err = float((new[0][k] - want).abs().max())
+        assert err <= 2e-4 * float(want.abs().max()) + 1e-6, (k, err)
+
+
+@pytest.mark.cuda
+def test_f32_bad_unit_table_raises(lego, cuda, monkeypatch):
+    """A unit table the kernel cannot take is refused at launch (no fallback)."""
+    import ctypes
+
+    kp = _kp32(lego, cuda)
+    pts, d = _points(128, 3, cuda)
+    g = torch.zeros((128, 4), device=cuda)
+    units = fused_mlp_bwd.dw_units()
+    units[0, fused_mlp_bwd.DW_UNIT_FIELDS.index("xlines")] = 33
+    bad = (ctypes.c_int * units.size)(*units.ravel().tolist())
+    monkeypatch.setattr(fused_mlp_bwd, "_units_arg", lambda fold_bias=True: (bad, units.shape[0]))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
 
 
 @pytest.mark.cuda
