@@ -146,7 +146,35 @@ Phases, each printed with its elapsed seconds:
  24. one train_full_image step of lego (bf16) at 200x200 through the entry
      point (B1, B2, B3 launched, the rays/s line counting H x W); then one
      such step through the kernels against the plain path at phase 8's
-     bounds, its ms and its peak device memory.
+     bounds, its ms and its peak device memory;
+ 25. python -m nerf_tpu_torch.bench as a subprocess, in a working directory
+     where the JAX package's checkpoint path holds the committed lego
+     checkpoint: its JSON line (forward and train rays/s, reps, spreads)
+     all finite and > 0;
+ 26. the ESS/ERT harnesses, each in its own working directory:
+     quick_ess_ert; ess_ert on 3 test views of phase 15's scene at
+     ESS_ERT_SIZE (B3 against its plain version on its baseline tiles, ERT
+     off); performance_test (four run --type network subprocesses); each
+     writes only its own file, and the committed ess_ert_results.json
+     stays as it is;
+ 27. python -m nerf_tpu_torch.distill_kilonerf (in-process) from the
+     committed teacher copied to a temp directory: KILO_STEPS steps of
+     65,536 points, the loss at the end below the loss at the start, the
+     student-against-teacher PSNR printed (no bound); B1 (the teacher and
+     its ESS grid) and B3 (the comparison render) launched; B1 against its
+     plain version on the first teacher batch;
+ 28. the distilled model through configs/nerf/lego_kilonerf.yaml: run --type
+     network at 800x800 on the scene, ms a frame (B3 launched, B1 not);
+     KILO_N_TIMED 200x200 requests over HTTP; its frame through B3 against
+     B3's plain version (>= 40 dB) and B3 on its tiles; kilonerf_eval on
+     KILO_CHECK_POINTS points of the fine tile against the per-point
+     evaluation in float64 (served points within KILO_REL, dropped points
+     exactly 0; the error with TF32 products printed beside it); the served
+     points per round on the 1,572,864-point fine tile; its time and the
+     grouped products' share under torch.profiler, also of a request; one
+     ESS-rebuild slab through the density with no point dropped (65,536 of
+     them against float64), and the drop rate the JAX package's capacity
+     gives on one lattice plane.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -792,14 +820,16 @@ def _drive_trainer(cfg_file, opts, counters):
 
 
 @contextlib.contextmanager
-def _spy(module, name):
+def _spy(module, name, keep=None, limit=None):
     """Record the (args, kwargs) of every call of module.name inside the
-    block; the spy carries its own ``launches`` (the wrappers count on the
-    module-level name they are bound to)."""
+    block (with ``keep``, of the first ``limit`` calls for which
+    ``keep(args, kwargs)`` holds); the spy carries its own ``launches``
+    (the wrappers count on the module-level name they are bound to)."""
     seen, real = [], getattr(module, name)
 
     def spy(*args, **kwargs):
-        seen.append((args, kwargs))
+        if keep is None or ((limit is None or len(seen) < limit) and keep(args, kwargs)):
+            seen.append((args, kwargs))
         return real(*args, **kwargs)
 
     spy.launches = 0
@@ -2255,6 +2285,317 @@ def full_image_phase(root, work, service, dev):
 
 
 
+# phases 25-28: the benchmark, the ESS/ERT harnesses, KiloNeRF
+KILO_STEPS = 2000  # distillation steps of 65,536 points: the distill CLI's default, uncut
+KILO_CHECK_POINTS = 4096  # points of a serving tile held against the float64 evaluation
+# KiloNeRF's float32 outputs against the per-point evaluation in float64: per
+# output |k - p64| <= KILO_REL (1 + |p64|). Five float32 layers of at most 63
+# + 32 terms lie within ~1e-6 of float64 at these weights; TF32 products
+# (10-bit mantissas) are ~1e-3 away, which the check must catch (printed
+# beside it).
+KILO_REL = 2e-5
+ESS_ERT_SIZE = 200  # the ESS/ERT harnesses' frame (phase 15's scene resized)
+
+
+def _digest(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def bench_phase(root, work):
+    """Phase 25: nerf_tpu_torch.bench's main (in-process) in a working
+    directory where the JAX package's checkpoint path holds the committed
+    lego checkpoint, with B1's, B2's and B3's counts zeroed just before it;
+    each kernel launched, every number of its JSON line finite and > 0."""
+    from nerf_tpu_torch import bench
+
+    run_dir = os.path.join(work, "bench")
+    ckpt = os.path.join(run_dir, "workspace", "trained_model", "nerf", "lego")
+    os.makedirs(ckpt)
+    os.symlink(os.path.join(root, "checkpoints/nerf/lego/nerf"), os.path.join(ckpt, "nerf"))
+    counters = _counters()
+    cwd, err = os.getcwd(), io.StringIO()
+    os.chdir(run_dir)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        with contextlib.redirect_stderr(_Tee(sys.stderr, err)):
+            record, _, secs = _run_cli(bench.main, [])
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        os.chdir(cwd)
+    check("using trained checkpoint" in err.getvalue(),
+          f"bench found no checkpoint: {err.getvalue()}")
+    check(all(v > 0 for v in launches.values()), f"bench missed a kernel: launches {launches}")
+    nums = [record["value"], record["rep_spread"] + 1.0, record["train_rays_per_s"],
+            record["train_rep_spread"] + 1.0, *record["reps"], *record["train_reps"]]
+    check(record["metric"] == "lego_800x800_fwd_rays_per_s_per_chip"
+          and all(math.isfinite(v) and v > 0 for v in nums), f"bench record {record}")
+    log(f"bench ({secs:.1f} s with its kernel loads and ESS rebuild; launches {launches}): "
+        f"{json.dumps(record)}")
+    return record
+
+
+def ess_ert_phase(root, work, scene_dir):
+    """Phase 26: quick_ess_ert, ess_ert on 3 frames of phase 15's scene at
+    ESS_ERT_SIZE, performance_test (four run --type network subprocesses on
+    that scene), each in its own working directory; B1 and B3 launched in
+    each (counts zeroed just before the in-process harnesses; each run's
+    last line gives its frames' launches); B3 against its plain version on
+    ess_ert's baseline (ERT off) tiles. The committed ess_ert_results.json
+    (the JAX package's) must stay as it is."""
+    from nerf_tpu_torch import ess_ert, performance_test, quick_ess_ert
+    from nerf_tpu_torch.ops import fused_mlp, integrate as tint
+
+    counters = _counters()
+
+    jax_results = os.path.join(root, "ess_ert_results.json")
+    before = _digest(jax_results)
+    size = ["test_dataset.H", str(ESS_ERT_SIZE), "test_dataset.W", str(ESS_ERT_SIZE)]
+    opts = _scene_opts(root, scene_dir) + size
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    cwd = os.getcwd()
+    out = {}
+    try:
+        for name in ("quick", "ess_ert", "performance"):
+            os.makedirs(os.path.join(work, name))
+            os.chdir(os.path.join(work, name))
+            if name == "quick":
+                quick_counts = {"fused_nerf_eval_f32": fused_mlp.fused_nerf_eval_f32,
+                                "integrate": tint.integrate}  # its weights are float32
+                for c in quick_counts.values():
+                    c.launches = 0
+                q, _, secs = _run_cli(quick_ess_ert.main, [])
+                launches = {k: c.launches for k, c in quick_counts.items()}
+                check(all(math.isfinite(v) for v in q["seconds"].values()), f"quick {q}")
+                check(all(v > 0 for v in launches.values()),
+                      f"quick_ess_ert missed a kernel: launches {launches}")
+                log(f"quick_ess_ert: {secs:.2f} s; launches {launches}; {q}")
+            elif name == "ess_ert":
+                counters["fused_nerf_eval"].launches = 0
+                with _spy(tint, "integrate", lambda a, kw: kw["ert_threshold"] == 0.0,
+                          limit=2) as caught:
+                    r, _, secs = _run_cli(ess_ert.main, ["--cfg_file", cfg_file, "n_frames", "3",
+                                                         *opts])
+                    launches = {"fused_nerf_eval": counters["fused_nerf_eval"].launches,
+                                "integrate": tint.integrate.launches}  # the spy's count
+                check(len(caught) == 2 and all(v > 0 for v in launches.values()),
+                      f"ess_ert did not go through B1 and B3: launches {launches}")
+                out["b3_err"] = max(integrate_errors(f"ess_ert baseline call {i}", *a[:3], 0.0,
+                                                     kw["sigma_activation"])
+                                    for i, (a, kw) in enumerate(caught))
+                check(sorted(os.listdir(".")) == ["ess_ert_results.json"], "ess_ert's files")
+                check(all(math.isfinite(v) and v > 0 for v in r["frame_times"].values()),
+                      f"ess_ert {r}")
+                out["ess_ert"] = r
+                log(f"ess_ert ({secs:.2f} s; launches {launches}): {json.dumps(r)}")
+            else:
+                p, _, secs = _run_cli(performance_test.main, [
+                    "--cfg_file", cfg_file, "--timeout", "300", *opts])
+                check(all(v["ok"] for v in p.values()), f"performance_test {p}")
+                runs = {k: dict((kv.rsplit(" ", 1)[0], int(kv.rsplit(" ", 1)[1]))
+                                for kv in v["tail"].splitlines()[-1].split(": ", 1)[1]
+                                .split(", "))
+                        for k, v in p.items()}
+                check(all(n["fused_nerf_eval"] > 0 and n["integrate"] > 0 for n in runs.values()),
+                      f"a performance_test run missed B1 or B3: launches {runs}")
+                log(f"performance_test runs' launches (their last lines): {runs}")
+                check(sorted(os.listdir(".")) == ["performance_test_results.txt"],
+                      "performance_test's files")
+                out["performance"] = {k: v["wall_s"] for k, v in p.items()}
+                log(f"performance_test ({secs:.1f} s): wall s {out['performance']}")
+    finally:
+        os.chdir(cwd)
+    check(_digest(jax_results) == before, "the committed ess_ert_results.json changed")
+    return out
+
+
+def distill_phase(root, work, dev):
+    """Phase 27: python -m nerf_tpu_torch.distill_kilonerf (in-process) from
+    the committed teacher, copied to a temp directory, KILO_STEPS steps of
+    65,536 points; the loss must fall; B1 (the teacher's queries and its ESS
+    grid) and B3 (the comparison render) launched; B1 against its plain
+    version on the first teacher batch. Returns (result, model dir, B1's
+    errors)."""
+    from nerf_tpu_torch import distill_kilonerf
+    from nerf_tpu_torch.ops import fused_mlp, integrate as tint
+    from nerf_tpu_torch.train.checkpoint import load_params
+    from nerf_tpu_torch.ops.fused_mlp import repack_params
+
+    model_dir = os.path.join(work, "kilo_teacher")
+    os.makedirs(model_dir)
+    for f in ("latest.npz", "latest.json"):
+        shutil.copy(os.path.join(root, "checkpoints/nerf/lego/nerf", f), model_dir)
+    tint.integrate.launches = 0
+    with _spy(fused_mlp, "fused_nerf_eval", lambda a, kw: a[1].shape[0] == 65536,
+              limit=1) as caught:
+        res, _, secs = _run_cli(distill_kilonerf.main, [
+            "--cfg_file", os.path.join(root, "configs/nerf/lego.yaml"),
+            "trained_model_dir", model_dir, "kilo.steps", str(KILO_STEPS)])
+        b1_launches = fused_mlp.fused_nerf_eval.launches  # the spy's count
+    launches = {"fused_nerf_eval": b1_launches, "integrate": tint.integrate.launches}
+    (first_step, first), (last_step, last) = res["losses"][0], res["losses"][-1]
+    log(f"distill: {KILO_STEPS} steps in {secs:.1f} s (teacher grid, steps, save, render), "
+        f"{res['pts_per_s']:,.0f} pts/s; loss {first:.6f} at step {first_step} -> {last:.6f} at "
+        f"step {last_step}; student vs teacher {res['psnr']:.2f} dB (no bound; the JAX "
+        f"package's distilled model: 9.72 dB); {res['n_centres']} occupied centres; launches "
+        f"{launches}")
+    check(last < first, "the distillation loss did not fall")
+    check(launches["integrate"] > 0 and launches["fused_nerf_eval"] > KILO_STEPS
+          and len(caught) == 1, "the distillation did not go through B1 and B3")
+    kp = {k: v.to(dev) for k, v in repack_params(
+        load_params(os.path.join(root, "checkpoints/nerf/lego/nerf"))["fine"]).items()}
+    pts, dirs = caught[0][0][1], caught[0][0][2]
+    errs = [fused_errors("distill teacher batch", kp, pts, dirs)]
+    return res, model_dir, errs
+
+
+KILO_N_TIMED = 8  # KiloNeRF requests in the timed serving window
+KILO_MACS_PER_POINT = 63 * 32 + 32 * 32 + 32 * 33 + 59 * 32 + 32 * 3  # lego_kilonerf's five layers
+
+
+def _kilo_profile(fn, dev):
+    """(device ms, grouped-product ms, top kernels) of fn() under torch.profiler."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+
+    def us(e):
+        return float(getattr(e, "self_device_time_total", None)
+                     or getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in prof.key_averages() if us(e) > 0 and e.device_type.name == "CUDA"]
+    gemm = sum(us(e) for e in kern if any(k in e.key.lower() for k in ("gemm", "bmm", "cutlass")))
+    top = sorted(kern, key=us, reverse=True)[:6]
+    return (sum(us(e) for e in kern) / 1e3, gemm / 1e3,
+            "; ".join(f"{us(e) / 1e3:.3f} ms x{e.count} {e.key[:60]}" for e in top))
+
+
+def kilo_phase(root, dev, scene_dir, model_dir):
+    """Phase 28: the distilled KiloNeRF (configs/nerf/lego_kilonerf.yaml)
+    through run --type network at SCENE x SCENE and served over HTTP at
+    SIZE x SIZE (B3 launched, B1 not); its frame through B3 against B3's
+    plain version (>= 40 dB); B3 against its plain version on its tiles;
+    kilonerf_eval on KILO_CHECK_POINTS points of a serving tile against the
+    per-point evaluation in float64 (dropped points exactly 0); the drop
+    rate per round on the fine tile; the ESS rebuild's density on one slab
+    with no point dropped. Returns (numbers, B3's largest error)."""
+    import torch
+    from nerf_tpu_torch import run
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp, integrate as tint, kilonerf as tk
+    from nerf_tpu_torch.render import renderer
+    from nerf_tpu_torch.tools.fused_accuracy import path_inputs
+
+    kfile = os.path.join(root, "configs/nerf/lego_kilonerf.yaml")
+    fused_mlp.fused_nerf_eval.launches = tint.integrate.launches = 0
+    s, _, secs = _run_cli(run.main, ["--type", "network", "--cfg_file", kfile,
+                                       *_scene_opts(root, scene_dir, ["trained_model_dir",
+                                                                      model_dir])])
+    launches = {"fused_nerf_eval": fused_mlp.fused_nerf_eval.launches,
+                "integrate": tint.integrate.launches}
+    log(f"KiloNeRF run --type network: {SCENE}x{SCENE} frame {s['mean_time_s'] * 1e3:.1f} ms "
+        f"({s['rays_per_s']:.0f} rays/s) over {s['frames']} frames after the first; {secs:.2f} s "
+        f"with the ESS rebuild; launches {launches}")
+    check(s["frames"] == 4 and launches["integrate"] > 0 and launches["fused_nerf_eval"] == 0,
+          "the KiloNeRF frames did not composite through B3 alone")
+
+    service, _, _, request_ms = serve_phase(dev, make_cfg(kfile, ["trained_model_dir", model_dir]),
+                                            {"integrate": tint.integrate}, n_timed=KILO_N_TIMED)
+    plain_phase(service)
+    opts, p = service.opts, service.params["fine"]
+    kcfg = renderer.kilo_config_from_opts(opts)
+    b3_err, fine, slab = 0.0, None, None
+    with torch.no_grad():
+        for label, _, pts, dirs, z, d in path_inputs(service, THETA0, PHI, RADIUS):
+            if z is None:
+                slab = pts
+                continue
+            raw = tk.kilonerf_eval(p, pts, dirs, kcfg).reshape(*z.shape, 4)
+            b3_err = max(b3_err, integrate_errors(f"KiloNeRF {label}", raw, z, d,
+                                                  opts.ert_threshold, opts.sigma_activation))
+            if fine is None and label.endswith("fine"):
+                fine = (pts, dirs)
+        fpts, fdirs = fine
+        served = tk.served_per_round(fpts, kcfg)
+        n = fpts.shape[0]
+        log(f"KiloNeRF fine tile, {n} points, capacity {tk.default_capacity(n, kcfg)} a network "
+            f"a round: served per round {served} ({', '.join(f'{v / n:.4f}' for v in served)}), "
+            f"dropped {n - sum(served)} ({(n - sum(served)) / n:.4f})")
+
+        gen = torch.Generator(device=dev).manual_seed(7)
+        sel = torch.randperm(n, generator=gen, device=dev)[:KILO_CHECK_POINTS]
+        sp, sd = fpts[sel].contiguous(), fdirs[sel].contiguous()
+        got = tk.kilonerf_eval(p, sp, sd, kcfg)
+        want = tk.kilonerf_naive(p, sp, sd, kcfg)
+        ids = tk.assign_networks(sp, kcfg)
+        keep = tk.rank_in_network(ids, tk.n_networks(kcfg)) < (
+            kcfg.dispatch_rounds * tk.default_capacity(KILO_CHECK_POINTS, kcfg))
+        rel = ((got.double() - want).abs() / (1.0 + want.abs()))[keep]
+        err = float(rel.max())
+
+        real = tk.full_float32
+        tk.full_float32 = lambda: tk.matmul_precision(True)
+        try:
+            got_tf32 = tk.kilonerf_eval(p, sp, sd, kcfg)
+        finally:
+            tk.full_float32 = real
+        err_tf32 = float(((got_tf32.double() - want).abs() / (1.0 + want.abs()))[keep].max())
+        want32 = tk.kilonerf_naive(p, sp, sd, kcfg, torch.float32)
+        err32 = float(((want32.double() - want).abs() / (1.0 + want.abs()))[keep].max())
+        n_zero = int((got[~keep] != 0).sum())
+        log(f"kilonerf_eval on {KILO_CHECK_POINTS} points of the fine tile against float64: "
+            f"{int(keep.sum())} served, max |k - p64| / (1 + |p64|) {err:.3g} (tol {KILO_REL}; "
+            f"the per-point evaluation in float32 {err32:.3g}; with TF32 products "
+            f"{err_tf32:.3g}); {int((~keep).sum())} dropped, {n_zero} of them not exactly 0")
+        check(err <= KILO_REL and n_zero == 0, "kilonerf_eval disagrees with float64")
+
+        eval_ms = time_ms(lambda: tk.kilonerf_eval(p, fpts, fdirs, kcfg), reps=3)
+        busy_ms, gemm_ms, top = _kilo_profile(lambda: tk.kilonerf_eval(p, fpts, fdirs, kcfg), dev)
+        counts = torch.bincount(tk.assign_networks(fpts, kcfg), minlength=tk.n_networks(kcfg))
+        cap, load = tk.default_capacity(n, kcfg), int(counts.max())
+        slots = sum(int((counts > r * cap).sum()) * min(cap, load - r * cap)
+                    for r in range(kcfg.dispatch_rounds) if load > r * cap)
+        bound = 2.0 * KILO_MACS_PER_POINT * sum(served) / PEAK_F32_FLOPS * 1e3
+        log(f"kilonerf_eval on the fine tile: {eval_ms:.3f} ms; under the profiler device "
+            f"{busy_ms:.3f} ms, of it the grouped products {gemm_ms:.3f} ms; {slots} slots "
+            f"evaluated for {sum(served)} served points; the served points' products at "
+            f"67 TFLOP/s float32: {bound:.3f} ms; top kernels: {top}")
+        frame_busy, frame_gemm, frame_top = _kilo_profile(
+            lambda: service.render(THETA0, PHI, RADIUS), dev)
+        log(f"a {SIZE}x{SIZE} KiloNeRF request under the profiler: device {frame_busy:.3f} ms, "
+            f"the grouped products {frame_gemm:.3f} ms ({frame_gemm / frame_busy:.3f}); "
+            f"top kernels: {frame_top}")
+
+        dens = renderer.make_density_fn(service.params["coarse"], opts)(slab)
+        sub = torch.randperm(slab.shape[0], generator=gen, device=dev)[:65536]
+        naive = torch.relu(tk.kilonerf_naive(service.params["coarse"], slab[sub],
+                                             torch.zeros_like(slab[sub]), kcfg)[:, 3])
+        d_err = float(((dens[sub].double() - naive).abs() / (1.0 + naive)).max())
+        naive32 = torch.relu(tk.kilonerf_naive(service.params["coarse"], slab[sub],
+                                               torch.zeros_like(slab[sub]), kcfg,
+                                               torch.float32)[:, 3])
+        d_err32 = float(((naive32.double() - naive).abs() / (1.0 + naive)).max())
+        cap_all = tk.no_drop_capacity(slab, kcfg)
+        plane = slab[:(3 * service.grid.resolution) ** 2]
+        jax_served = sum(tk.served_per_round(plane, kcfg))
+        log(f"ESS rebuild slab of {slab.shape[0]} points: capacity {cap_all} (its fullest "
+            f"network), served {tk.served_per_round(slab, kcfg, cap_all)}; 65,536 of them "
+            f"against float64: {d_err:.3g} (tol {KILO_REL}; the per-point evaluation in "
+            f"float32 {d_err32:.3g}); one lattice plane (the JAX "
+            f"package's slab) at its default capacity would drop {plane.shape[0] - jax_served} "
+            f"of {plane.shape[0]} ({1 - jax_served / plane.shape[0]:.4f})")
+        check(tk.served_per_round(slab, kcfg, cap_all)[0] == slab.shape[0] and d_err <= KILO_REL,
+              "the KiloNeRF ESS density drops points or disagrees with float64")
+    return {"frame_ms": s["mean_time_s"] * 1e3, "request_ms": request_ms, "eval_ms": eval_ms,
+            "occupied": float(service.grid.occupied.float().mean())}, b3_err
+
+
 def main() -> int:
     import torch
 
@@ -2428,7 +2769,24 @@ def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
         f"{b1_f32['bound_ms']:.3f}), B2-f32 {b2_f32['ms']:.3f} ms on a step's fine batch (bound "
         f"{b2_f32['bound_ms']:.3f}); whole-image step {full['step_ms']:.1f} ms at "
         f"{FULL_IMAGE}x{FULL_IMAGE}, peak {full['peak_gib']:.2f} GiB")
-    log("phase 25: done")
+    torch.cuda.empty_cache()  # the subprocesses below share the card
+    log("phase 25: nerf_tpu_torch.bench, in-process, its kernels counted")
+    bench = bench_phase(root, work)
+    log("phase 26: the ESS/ERT harnesses")
+    ess = ess_ert_phase(root, work, scene_dir)
+    log("phase 27: KiloNeRF distillation from the committed teacher")
+    distilled, kilo_dir, teacher_errs = distill_phase(root, work, dev)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], check_fused_max(teacher_errs))
+    log("phase 28: KiloNeRF rendered, served and checked")
+    kilo, kilo_b3 = kilo_phase(root, dev, scene_dir, kilo_dir)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], ess["b3_err"], kilo_b3)
+    log(f"harness and KiloNeRF slice on {smi}: bench {bench['value']:.1f} fwd rays/s, "
+        f"{bench['train_rays_per_s']:.1f} train rays/s; ess_ert at {ESS_ERT_SIZE}x{ESS_ERT_SIZE} "
+        f"s/frame {ess['ess_ert']['frame_times']}; distill {distilled['pts_per_s']:,.0f} pts/s, "
+        f"{distilled['psnr']:.2f} dB against the teacher; KiloNeRF {SCENE}x{SCENE} frame "
+        f"{kilo['frame_ms']:.1f} ms, {SIZE}x{SIZE} request {kilo['request_ms']:.2f} ms, "
+        f"kilonerf_eval on a fine tile {kilo['eval_ms']:.3f} ms")
+    log("phase 29: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(smi, flush=True)

@@ -15,7 +15,10 @@ of the query's kernels as ``nerf_tpu``'s ``use_pallas`` is, its plain
 version), the directions' frequency encoding and the MLP in plain PyTorch, as
 the JAX package runs that MLP through XLA. So does a frequency NeRF of any
 other shape than the fused kernel's (``supports``; ``query_mlp``): its
-encodings and MLP in plain PyTorch, as JAX's ``query_network_xla``.
+encodings and MLP in plain PyTorch, as JAX's ``query_network_xla``. A
+KiloNeRF model (``network_type == "kilonerf"``) queries its voxel-routed
+networks (``ops/kilonerf.py``) for both passes, and its grid-rebuild density
+drops no point.
 
 Compaction (``RenderOptions.ess_compaction`` > 0, evaluation only): the
 fine pass evaluates only the samples that lie in occupied voxels
@@ -45,6 +48,7 @@ from ..models.nerf_mlp import apply_nerf_mlp
 from ..ops.fused_mlp import (KERNEL_DTYPES, fused_nerf_eval, fused_nerf_eval_plain,
                              query_network, repack_params, supports)
 from ..ops.integrate import composite_kernel
+from ..ops.kilonerf import KiloConfig, kilonerf_eval, no_drop_capacity, query_network_kilonerf
 from ..tree import tree_map
 from . import occupancy as occ
 from .composite import EMPTY_SIGMA_RAW, composite, density_activation
@@ -71,6 +75,13 @@ class RenderOptions:
     # the fine pass's compaction capacity as a fraction of its points; 0 is
     # off, -1 is "auto" (resolve_compaction calibrates it per checkpoint)
     ess_compaction: float = 0.0
+    # the network family: "nerf" (coarse + fine MLPs) or "kilonerf" (one
+    # voxel-routed grid of tiny MLPs, ops/kilonerf.py, for both passes)
+    network_type: str = "nerf"
+    kilo_grid_size: int = 16
+    kilo_hidden: int = 32
+    kilo_capacity_factor: float = 2.0
+    kilo_dispatch_rounds: int = 1
     xyz_freqs: int = 10
     dir_freqs: int = 4
     # the xyz encoder: "frequency" or "hashgrid" (models/hashgrid.py)
@@ -99,6 +110,10 @@ class RenderOptions:
         return self.xyz_encoder_type == "hashgrid"
 
     @property
+    def kilonerf(self) -> bool:
+        return self.network_type == "kilonerf"
+
+    @property
     def input_ch(self) -> int:
         if self.hashgrid:
             return self.hash_levels * self.hash_features
@@ -120,11 +135,14 @@ class RenderOptions:
     @classmethod
     def from_cfg(cls, cfg) -> "RenderOptions":
         """The options of a ``nerf_tpu`` config, for the models the port
-        runs: the NeRF with the frequency or the hash-grid xyz encoder.
+        runs: the NeRF with the frequency or the hash-grid xyz encoder, and
+        KiloNeRF (``network_module: kilonerf``, its ``kilo`` node).
         ``ess_compaction: auto`` becomes -1, as in the JAX package."""
         net = cfg.network
-        if str(cfg.get("network_module", "nerf")) != "nerf":
-            raise NotImplementedError(f"network_module {cfg.network_module!r} is not ported")
+        module = str(cfg.get("network_module", "nerf"))
+        if module not in ("nerf", "kilonerf"):
+            raise NotImplementedError(f"network_module {module!r} is not ported")
+        kilo = cfg.get("kilo", {})
         xyz = net.xyz_encoder
         kind = xyz.get("type", "frequency")
         if kind not in ("frequency", "hashgrid", "grid_hash"):
@@ -143,6 +161,11 @@ class RenderOptions:
         ta = cfg.task_arg
         return cls(
             **hash_kw,
+            network_type=module,
+            kilo_grid_size=int(kilo.get("grid_size", 16)),
+            kilo_hidden=int(kilo.get("hidden", 32)),
+            kilo_capacity_factor=float(kilo.get("capacity_factor", 2.0)),
+            kilo_dispatch_rounds=int(kilo.get("dispatch_rounds", 1)),
             n_samples=int(ta.N_samples),
             n_importance=int(ta.N_importance),
             near=float(cfg.get("near", 2.0)),
@@ -181,6 +204,12 @@ def kernel_params(tree: Mapping[str, Any], opts: RenderOptions,
     NeRF of another shape, ``supports``) keeps its tree: float32 MLP leaves
     (and a hash-grid table in ``opts.hash_dtype``), as tensors on ``device``."""
     dev = torch.device(device)
+    if opts.kilonerf:  # one float32 model for both passes, on the device once
+        models: Dict[int, Dict] = {}
+        return {name: models.setdefault(id(sub), tree_map(
+                    lambda x: torch.as_tensor(x).detach().to(device=dev, dtype=torch.float32),
+                    sub))
+                for name, sub in tree.items()}
     if opts.hashgrid or not supports(opts):
         def leaf(x, dtype=torch.float32):
             return torch.as_tensor(x).detach().to(device=dev, dtype=dtype)
@@ -203,7 +232,8 @@ def check_weight_dtype(opts: RenderOptions, device: torch.device) -> None:
     (``fused_mlp.KERNEL_DTYPES``) on a CUDA device, unless
     ``opts.use_fused_mlp`` is off (the plain version) or the model does not
     go through the fused kernel (``supports``)."""
-    if (device.type == "cuda" and opts.use_fused_mlp and not opts.hashgrid and supports(opts)
+    if (device.type == "cuda" and opts.use_fused_mlp and not opts.hashgrid
+            and not opts.kilonerf and supports(opts)
             and _DTYPES.get(opts.compute_dtype) not in KERNEL_DTYPES):
         names = " or ".join(str(d).replace("torch.", "") for d in KERNEL_DTYPES)
         raise NotImplementedError(
@@ -222,7 +252,22 @@ def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions
     does not depend on the view direction, so the directions are zeros (for
     a model queried in plain PyTorch, the hash grid or a frequency NeRF of
     another shape, a zero direction embedding, as the JAX package's trainer
-    feeds it, evaluated in chunks of ``HASH_DENSITY_CHUNK`` points)."""
+    feeds it, evaluated in chunks of ``HASH_DENSITY_CHUNK`` points).
+
+    KiloNeRF (``kp`` its l1..l5 leaves): one dispatch round with the
+    capacity of the fullest network in the chunk (``no_drop_capacity``),
+    so that no point is dropped. (The JAX package uses the default
+    capacity here: a lattice slab of one x-plane lies in one column of
+    networks, and a quarter of its points come back as density 0.)"""
+    if opts.kilonerf:
+        kcfg = kilo_config_from_opts(opts)
+
+        def kilo_density(pts: torch.Tensor) -> torch.Tensor:
+            raw = kilonerf_eval(kp, pts, torch.zeros_like(pts), kcfg,
+                                capacity=no_drop_capacity(pts, kcfg))
+            return density_activation(raw[:, 3], opts.sigma_activation)
+
+        return kilo_density
     if opts.hashgrid or not supports(opts):
         def mlp_density(pts: torch.Tensor) -> torch.Tensor:
             out = []
@@ -270,11 +315,25 @@ def query_mlp(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tens
     return raw.reshape(n, s, 4)
 
 
-def query(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
+def kilo_config_from_opts(opts: RenderOptions) -> KiloConfig:
+    """The routed networks' config; their box is ``KiloConfig``'s [-2, 2]^3,
+    as the JAX package's."""
+    return KiloConfig(grid_size=opts.kilo_grid_size, hidden=opts.kilo_hidden,
+                      xyz_freqs=opts.xyz_freqs, dir_freqs=opts.dir_freqs,
+                      capacity_factor=opts.kilo_capacity_factor,
+                      dispatch_rounds=opts.kilo_dispatch_rounds)
+
+
+def query(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: Optional[torch.Tensor],
           opts: RenderOptions) -> torch.Tensor:
     """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] through the model's
-    query: the fused kernel (or its plain version) for the shape it covers,
-    else ``query_mlp``."""
+    query: KiloNeRF's routed networks (zero directions when none are
+    given), the fused kernel (or its plain version) for the shape it
+    covers, else ``query_mlp``."""
+    if opts.kilonerf:
+        if viewdirs is None:
+            viewdirs = pts.new_zeros(pts.shape[0], 3)
+        return query_network_kilonerf(params, pts, viewdirs, kilo_config_from_opts(opts))
     if opts.hashgrid or not supports(opts):
         return query_mlp(params, pts, viewdirs, opts)
     return query_network(params, pts, viewdirs, plain=not opts.use_fused_mlp,

@@ -5,7 +5,7 @@
 
 - ``dataset``: load the train split and read every item.
 - ``network``: render the first 5 test views; ms per frame and rays/s with
-  the first frame dropped.
+  the first frame dropped, and the frames' kernel launches (``launches``).
 - ``marched``: the first test view through the hierarchical and the marched
   renderer: seconds a frame, rays/s and PSNR of each.
 - ``evaluate``: every test view through the evaluator (MSE, PSNR, SSIM,
@@ -13,9 +13,10 @@
   spiral (or original) path's frames and videos. ``ess_compaction: auto``
   is calibrated on the middle 4,096 rays of view 0.
 
-The model comes from ``trained_model_dir`` (a missing checkpoint raises) and
-its ESS grid is rebuilt from its coarse density. Runs on CUDA unless
-``--device cpu``.
+The model comes from ``trained_model_dir`` (a missing checkpoint raises;
+KiloNeRF, ``network_module: kilonerf``, from the distilled one in
+``<trained_model_dir>/kilonerf``) and its ESS grid is rebuilt from its
+coarse density. Runs on CUDA unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -32,12 +33,13 @@ from .data import make_dataset
 from .device import resolve_device
 from .eval.evaluator import Evaluator
 from .eval.metrics import psnr as psnr_fn
+from .ops import fused_mlp, integrate
 from .render import occupancy as occ
 from .render.marched import render_image_marched
 from .render.rays import image_rays
-from .render.renderer import (RenderOptions, kernel_params, make_density_fn, render_image,
-                              resolve_compaction)
-from .train.checkpoint import load_params
+from .render.renderer import (RenderOptions, kernel_params, kilo_config_from_opts,
+                              make_density_fn, render_image, resolve_compaction)
+from .train.checkpoint import load_kilonerf, load_params
 from .utils.profiling import RaysPerSecond
 
 
@@ -45,18 +47,27 @@ def load_eval_model(cfg, device: torch.device
                     ) -> Tuple[RenderOptions, Dict, Optional[occ.OccupancyGrid]]:
     """(options, kernel weights on ``device``, ESS grid or None) of the
     checkpoint in ``cfg.trained_model_dir``; the grid is rebuilt from the
-    coarse model's density (init_grid's random voxels are all overwritten)."""
+    coarse model's density (init_grid's random voxels are all overwritten).
+    KiloNeRF: the distilled model of ``<trained_model_dir>/kilonerf`` for
+    both passes."""
     opts = RenderOptions.from_cfg(cfg)
-    params = kernel_params(load_params(cfg.trained_model_dir, **opts.model_shape()), opts,
-                           device)
-    grid = None
-    if opts.enable_ess:
-        gen = torch.Generator(device=device).manual_seed(1)
-        grid = occ.populate_from_density(
-            occ.init_grid(int(cfg.get("occupancy_grid_resolution", 128)), generator=gen,
-                          device=device),
-            make_density_fn(params["coarse"], opts))
-    return opts, params, grid
+    if opts.kilonerf:
+        p = load_kilonerf(cfg.trained_model_dir, kilo_config_from_opts(opts), device)
+        params = kernel_params({"coarse": p, "fine": p}, opts, device)
+    else:
+        params = kernel_params(load_params(cfg.trained_model_dir, **opts.model_shape()), opts,
+                               device)
+    return opts, params, rebuild_grid(cfg, params, opts, device) if opts.enable_ess else None
+
+
+def rebuild_grid(cfg, params, opts: RenderOptions, device) -> occ.OccupancyGrid:
+    """The ESS grid of ``params``' coarse density, from ``init_grid``
+    (seeded with 1) at ``occupancy_grid_resolution``."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    return occ.populate_from_density(
+        occ.init_grid(int(cfg.get("occupancy_grid_resolution", 128)), generator=gen,
+                      device=device),
+        make_density_fn(params["coarse"], opts))
 
 
 def _tensor(x, dev) -> torch.Tensor:
@@ -77,12 +88,22 @@ def run_dataset(cfg, device=None):
     return ds
 
 
+def launches() -> Dict[str, int]:
+    """The launch counts of the kernels a render can run (each wrapper
+    counts the launches of its kernel, on CUDA tensors only)."""
+    return {"fused_nerf_eval": fused_mlp.fused_nerf_eval.launches,
+            "fused_nerf_eval_f32": fused_mlp.fused_nerf_eval_f32.launches,
+            "integrate": integrate.integrate.launches}
+
+
 def run_network(cfg, device=None) -> Dict[str, float]:
-    """Render timing over the first 5 test views (frame 0 dropped)."""
+    """Render timing over the first 5 test views (frame 0 dropped); the
+    last line printed is the frames' kernel launches."""
     dev = resolve_device(device)
     opts, params, grid = load_eval_model(cfg, dev)
     ds = make_dataset(cfg, "test")
     K = _tensor(ds.K, dev)
+    before = launches()
     meter = RaysPerSecond(drop_first=1)
     for i in range(min(5, len(ds))):
         with meter.measure(ds.H * ds.W) as done:
@@ -94,6 +115,8 @@ def run_network(cfg, device=None) -> Dict[str, float]:
     if s["frames"]:
         print(f"mean render time {s['mean_time_s']:.3f}s, fps {s['fps']:.2f}, "
               f"{s['rays_per_s']:,.0f} rays/s")
+    print("kernel launches: " + ", ".join(f"{k} {v - before[k]}"
+                                          for k, v in launches().items()))
     return s
 
 

@@ -8,7 +8,9 @@ Usage:
     python -m nerf_tpu_torch.serve --cfg_file configs/nerf/lego.yaml \\
         trained_model_dir checkpoints/nerf/lego/nerf [--port 8765] [--size 200]
 
-Frames are PNG, encoded by the port's codec (``utils/png.py``). Every
+A KiloNeRF config (``configs/nerf/lego_kilonerf.yaml``) serves the model
+distilled into ``<trained_model_dir>/kilonerf``. Frames are PNG, encoded by
+the port's codec (``utils/png.py``). Every
 failed ``/frame`` answers 500, is counted in ``RenderService.errors`` and
 has its traceback printed to stderr.
 """

@@ -18,6 +18,11 @@ it) is stored as numpy writes JAX's bfloat16, as raw two-byte voids
 (``|V2``); the port reads those bits through uint16 and writes them back the
 same way.
 
+A distilled KiloNeRF (``<trained_model_dir>/kilonerf``) holds 32 leaves:
+l1..l5 {b [G, out], w [G, in, out]} (10), then ``optax.adam``'s count, mu
+(10) and nu (10), which keeps no schedule counter, then the step
+(``kilonerf_template``, ``load_kilonerf``).
+
 Reading and writing need no JAX: the leaf order is rebuilt here from the
 model's shape, and the files load in ``nerf_tpu.train.checkpoint`` as its
 own do.
@@ -122,6 +127,45 @@ def from_jax_params(tree: Tree, skips=(4,)) -> Dict[str, NeRFMLP]:
     return {name: NeRFMLP.from_tree(sub, skips=skips) for name, sub in tree.items()}
 
 
+def from_jax_kilonerf(tree: Tree, device: Optional[torch.device] = None,
+                      requires_grad: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A KiloNeRF model of the JAX package ({"l1".."l5": {"w": [G, in, out],
+    "b": [G, out]}}, numpy or JAX arrays) -> the port's float32 tensors."""
+    return {name: {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                   .requires_grad_(requires_grad) for k, v in layer.items()}
+            for name, layer in tree.items()}
+
+
+KILONERF_DIR = "kilonerf"  # under trained_model_dir, where the distillation saves
+
+
+def kilonerf_template(cfg_kilo, lr: float = 1e-3, device=None):
+    """The TrainState the distillation saves, shaped for ``cfg_kilo`` (a
+    ``KiloConfig``): params l1..l5, ``plain_adam``'s (count, mu, nu), step;
+    32 leaves, the layout of the JAX package's ``TrainState(params,
+    optax.adam(lr).init(params), step)``."""
+    from ..ops.kilonerf import layer_shapes, n_networks
+    from .optim import plain_adam
+    from .state import init_state
+
+    G = n_networks(cfg_kilo)
+    params = {name: {"w": torch.zeros(G, fi, fo, device=device).requires_grad_(True),
+                     "b": torch.zeros(G, fo, device=device).requires_grad_(True)}
+              for name, (fi, fo) in layer_shapes(cfg_kilo).items()}
+    return init_state(params, plain_adam(lr))
+
+
+def load_kilonerf(model_dir: str, cfg_kilo, device=None):
+    """The distilled KiloNeRF params in ``<model_dir>/kilonerf`` (the JAX
+    package's file or the port's), as float32 tensors on ``device``.
+    Raises ``FileNotFoundError`` when there is no checkpoint."""
+    path = os.path.join(model_dir, KILONERF_DIR)
+    ckpt = load_checkpoint(path, kilonerf_template(cfg_kilo, device=device))
+    if ckpt is None:
+        raise FileNotFoundError(f"no kilonerf checkpoint in {path}")
+    return {k: {n: t.detach() for n, t in v.items()} for k, v in ckpt[0].params.items()}
+
+
 def _state_leaves(state) -> list:
     """A TrainState's leaves in JAX's order: params, optimizer state, step."""
     return tree_flatten(state.params)[0] + state.opt_state.leaves() + [state.step]
@@ -189,12 +233,13 @@ def load_checkpoint(model_dir: str, template, tag: str = "latest"):
     params = tree_unflatten(params_spec, [t.requires_grad_(True) for t in leaves[:n_params]])
     opt = template.opt_state
     rest = leaves[n_params:-1]
+    sched = None if opt.sched_count is None else rest[-1]
     if opt.mu is None:
-        opt_state = dataclasses.replace(opt, sched_count=rest[0])
+        opt_state = dataclasses.replace(opt, sched_count=sched)
     else:
         n = len(opt.mu)
         opt_state = dataclasses.replace(opt, count=rest[0], mu=rest[1:1 + n],
-                                        nu=rest[1 + n:1 + 2 * n], sched_count=rest[1 + 2 * n])
+                                        nu=rest[1 + n:1 + 2 * n], sched_count=sched)
     state = dataclasses.replace(template, params=params, opt_state=opt_state, step=leaves[-1])
     meta = {"epoch": -1, "recorder": {}}
     meta_path = os.path.join(model_dir, f"{tag}.json")

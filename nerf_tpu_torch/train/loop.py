@@ -24,6 +24,7 @@ from ..device import resolve_device
 from ..eval.metrics import psnr as psnr_fn
 from ..models.hashgrid import init_hashgrid
 from ..models.nerf_mlp import init_nerf_mlp
+from ..ops.kilonerf import init_kilonerf
 from ..render import occupancy as occ
 from ..render import renderer
 from ..render.renderer import RenderOptions, check_weight_dtype, render_image
@@ -41,7 +42,11 @@ def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
     each (``init_hashgrid``, U(-1e-4, 1e-4) in ``opts.hash_dtype``) and
     starts alpha_linear's bias at 0.1, as the JAX package does: the features
     start near 0, so sigma_raw is about that bias everywhere, and a negative
-    one would start every density dead."""
+    one would start every density dead. KiloNeRF: one model of
+    ``init_kilonerf`` for both passes, ``{"coarse": p, "fine": p}``."""
+    if opts.kilonerf:
+        p = init_kilonerf(generator, renderer.kilo_config_from_opts(opts), device)
+        return {"coarse": p, "fine": p}
     kw = dict(D=opts.mlp_depth, W=opts.mlp_width, input_ch=opts.input_ch,
               input_ch_views=opts.input_ch_views, skips=opts.skips, device=device,
               use_viewdirs=opts.use_viewdirs)
@@ -62,8 +67,9 @@ def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
 def make_density_fn(params, opts: RenderOptions):
     """[M, 3] -> activated sigma of the MLP tree ``params`` (the coarse model),
     through the fused kernel (or, for a model it does not cover, the plain
-    query's encodings and MLP), for grid rebuilds."""
-    dev = params["pts_linears"][0]["w"].device
+    query's encodings and MLP; for KiloNeRF, its networks with no point
+    dropped), for grid rebuilds."""
+    dev = (params["l1"] if opts.kilonerf else params["pts_linears"][0])["w"].device
     kp = renderer.kernel_params({"m": params}, opts, dev)["m"]
     return renderer.make_density_fn(kp, opts)
 
@@ -83,6 +89,9 @@ def train(cfg, max_epochs: Optional[int] = None,
     """Train ``cfg``'s NeRF; returns (state, grid). ``device`` defaults to CUDA."""
     dev = resolve_device(device)
     opts = RenderOptions.from_cfg(cfg)
+    if opts.kilonerf:
+        raise NotImplementedError("training KiloNeRF from images is not ported; distill one "
+                                  "with python -m nerf_tpu_torch.distill_kilonerf")
     check_weight_dtype(opts, dev)
     seed = int(cfg.get("seed", 0))
     gen_init = torch.Generator().manual_seed(seed)

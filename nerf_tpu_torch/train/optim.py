@@ -101,33 +101,41 @@ class OptState:
     count: int  # the moments' update count (Adam, RAdam)
     mu: Optional[List[torch.Tensor]]
     nu: Optional[List[torch.Tensor]]
-    sched_count: int  # the schedule's step counter
+    # the schedule's step counter; None for a constant learning rate, which
+    # optax keeps no counter for (``plain_adam``)
+    sched_count: Optional[int]
 
     def leaves(self) -> list:
         """In JAX's flatten order of optax's chain state."""
         head = [] if self.mu is None else [self.count, *self.mu, *self.nu]
-        return head + [self.sched_count]
+        return head + ([] if self.sched_count is None else [self.sched_count])
 
 
 class Optimizer:
-    """clip -> adam | radam | sgd -> + weight_decay * p -> * -lr(count)."""
+    """clip -> adam | radam | sgd -> + weight_decay * p -> * -lr(count).
+    ``bare``: optax's bare transform (``optax.adam(lr)``, ``plain_adam``):
+    no clip, and a constant learning rate with no schedule counter in the
+    state."""
 
     def __init__(self, schedule: Schedule, kind: str = "adam", weight_decay: float = 0.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 bare: bool = False):
         if kind not in ("adam", "radam", "sgd"):
             raise ValueError(f"unknown optimizer {kind}")
         self.schedule, self.kind, self.weight_decay = schedule, kind, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.bare = bare
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
+        sched = None if self.bare else 0
         if self.kind == "sgd":
-            return OptState(0, None, None, 0)
+            return OptState(0, None, None, sched)
         zeros = lambda: [torch.zeros_like(p, memory_format=torch.contiguous_format)  # noqa: E731
                          for p in params]
-        return OptState(0, zeros(), zeros(), 0)
+        return OptState(0, zeros(), zeros(), sched)
 
     def lr(self, state: OptState) -> float:
-        return float(self.schedule(state.sched_count))
+        return float(self.schedule(state.sched_count or 0))
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
@@ -144,12 +152,13 @@ class Optimizer:
                 r = np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf)
                             / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
             state.count = count
-        neg_lr = -self.schedule(state.sched_count)
+        neg_lr = -self.schedule(state.sched_count or 0)
         for i, (p, g) in enumerate(zip(params, grads)):
             def c(v):  # a constant as an operand of p's dtype
                 return v if p.dtype == torch.float32 else _rounded(v, p.dtype)
 
-            g = g.clamp(-CLIP, CLIP)
+            if not self.bare:
+                g = g.clamp(-CLIP, CLIP)
             if self.kind == "sgd":
                 u = g
             else:
@@ -166,7 +175,14 @@ class Optimizer:
             if self.weight_decay > 0:
                 u = u + c(self.weight_decay) * p
             p.add_(u * c(float(neg_lr)))
-        state.sched_count += 1
+        if state.sched_count is not None:
+            state.sched_count += 1
+
+
+def plain_adam(lr: float) -> Optimizer:
+    """``optax.adam(lr)``: Adam at a constant rate, no clip, no decay; its
+    state is (count, mu, nu), as KiloNeRF's distillation saves it."""
+    return Optimizer(lambda step: np.float32(lr), kind="adam", bare=True)
 
 
 def make_optimizer(cfg) -> Optimizer:

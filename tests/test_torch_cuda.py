@@ -68,6 +68,15 @@ Tolerances (as chip_smoke.py states them):
   persistent tiles (largest error within max(5e-2, 2x the float64 plain
   version's)); a marched block through the kernels at PSNR >= 40 dB from
   the plain path; the Blender loader's tensors copied to the card exactly.
+- KiloNeRF (torch.bmm in full float32, no hand-written kernel): outputs of
+  served points within 2e-5 (1 + |p64|) of the per-point evaluation in
+  float64, dropped points exactly 0, whatever the process's TF32 setting
+  (the result is the same bit for bit with TF32 allowed and not); with TF32
+  allowed and no wrap, every gradient leaf within 1e-5 of its largest
+  |value| of the float64 evaluation's, the caller's setting kept; a frame
+  through B3 at PSNR >= 40 dB from B3's plain version; one distillation
+  step on the card: the loss and every gradient leaf within 1e-4 of its
+  largest |value| of the same step on the CPU (float32 sums in other orders).
 """
 import dataclasses
 import math
@@ -880,3 +889,109 @@ def test_other_shape_renders_through_integrate(cuda, use_viewdirs):
     want = rend.render_image(kp, pose, K, 32, 32,
                              dataclasses.replace(opts, use_integrate_kernel=False))["rgb_map"]
     assert _psnr(got, want) >= 40.0
+
+
+def _kilo(cuda, rounds=4):
+    from nerf_tpu_torch.ops import kilonerf as tk
+
+    cfg = tk.KiloConfig(capacity_factor=3.0, dispatch_rounds=rounds)
+    return tk, cfg, tk.init_kilonerf(torch.Generator().manual_seed(0), cfg, cuda)
+
+
+def _precision():
+    mm = torch.backends.cuda.matmul
+    return mm.fp32_precision if hasattr(mm, "fp32_precision") else \
+        torch.get_float32_matmul_precision()
+
+
+@pytest.mark.cuda
+def test_kilonerf_eval_matches_float64_whatever_tf32(cuda):
+    """65,536 points clustered in a few networks (drops in 1 and 4 rounds)."""
+    tk, cfg, p = _kilo(cuda)
+    pts, dirs = _points(65536, 21, cuda)
+    pts = pts * 0.3  # clustered near the centre: far above the mean load
+    want = tk.kilonerf_naive(p, pts, dirs, cfg)
+    outs = []
+    for tf32 in (False, True):
+        with tk.matmul_precision(tf32):
+            outs.append(tk.kilonerf_eval(p, pts, dirs, cfg))
+    assert torch.equal(outs[0], outs[1])
+    cap = tk.default_capacity(65536, cfg)
+    keep = tk.rank_in_network(tk.assign_networks(pts, cfg), tk.n_networks(cfg)) < 4 * cap
+    assert 0 < int((~keep).sum()) < 65536
+    rel = (outs[0].double() - want).abs() / (1.0 + want.abs())
+    assert float(rel[keep].max()) <= 2e-5
+    assert bool((outs[0][~keep] == 0).all())
+
+
+@pytest.mark.cuda
+def test_kilonerf_gradients_match_float64_with_tf32_on(cuda):
+    """TF32 allowed by the caller and no wrap around the autograd call: every
+    gradient leaf of a loss of kilonerf_eval (4 rounds, with drops) within
+    1e-5 of its largest |value| of the per-point evaluation in float64 (the
+    backward's products run in full float32 too; TF32 products miss by
+    ~1e-4); the caller's setting reads back as it was, inside and after."""
+    tk, cfg, p = _kilo(cuda)
+    pts, dirs = _points(65536, 23, cuda)
+    pts = pts * 0.3
+    cot = torch.randn(65536, 4, generator=torch.Generator(device=cuda).manual_seed(2),
+                      device=cuda)
+    cap = tk.default_capacity(65536, cfg)
+    keep = tk.rank_in_network(tk.assign_networks(pts, cfg), tk.n_networks(cfg)) < 4 * cap
+    assert 0 < int((~keep).sum()) < 65536
+
+    def leaves(dtype):
+        tree = {k: {n: t.detach().to(dtype).requires_grad_(True) for n, t in v.items()}
+                for k, v in p.items()}
+        return tree, [tree[k][n] for k in tk.LAYERS for n in ("w", "b")]
+
+    t64, l64 = leaves(torch.float64)
+    want = torch.autograd.grad((tk.kilonerf_naive(t64, pts, dirs, cfg) * cot.double()
+                                * keep[:, None]).sum(), l64)
+    before = _precision()
+    with tk.matmul_precision(True):
+        on = _precision()
+        t32, l32 = leaves(torch.float32)
+        got = torch.autograd.grad((tk.kilonerf_eval(t32, pts, dirs, cfg) * cot).sum(), l32)
+        assert _precision() == on
+    assert _precision() == before
+    for a, b in zip(got, want):
+        assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_kilonerf_frame_through_integrate(cuda):
+    tk, cfg, p = _kilo(cuda)
+    opts = RenderOptions(network_type="kilonerf", kilo_capacity_factor=3.0,
+                         kilo_dispatch_rounds=4, enable_ess=False, tile_rays=1024, perturb=0.0)
+    kp = kernel_params({"coarse": p, "fine": p}, opts, cuda)
+    K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]], device=cuda)
+    pose = torch.as_tensor(look_at_pose(0.5, 0.3, 4.0), device=cuda)
+    before = (tint.integrate.launches, fused_mlp.fused_nerf_eval.launches)
+    got = rend.render_image(kp, pose, K, 32, 32, opts)["rgb_map"]
+    assert tint.integrate.launches > before[0] and fused_mlp.fused_nerf_eval.launches == before[1]
+    want = rend.render_image(kp, pose, K, 32, 32,
+                             dataclasses.replace(opts, use_integrate_kernel=False))["rgb_map"]
+    assert _psnr(got, want) >= 40.0
+
+
+@pytest.mark.cuda
+def test_kilonerf_distill_loss_and_gradients_match_the_cpu(cuda):
+    from nerf_tpu_torch.train import distill
+
+    tk, cfg, p = _kilo(cuda, rounds=1)
+    pts, dirs = _points(8192, 22, torch.device("cpu"))
+    t_raw = torch.randn(8192, 4, generator=torch.Generator().manual_seed(1))
+    t_rgb, t_sigma = distill.teacher_targets(t_raw)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = {k: {n: t.detach().to(dev).requires_grad_(True) for n, t in v.items()}
+                  for k, v in p.items()}
+        loss = distill.distill_loss(leaves, pts.to(dev), dirs.to(dev), t_rgb.to(dev),
+                                    t_sigma.to(dev), cfg, capacity=64)
+        loss.backward()
+        grads.append((float(loss.detach()), [leaves[k][n].grad.cpu() for k in tk.LAYERS
+                                            for n in ("w", "b")]))
+    assert grads[0][0] == pytest.approx(grads[1][0], rel=1e-5)
+    for a, b in zip(grads[0][1], grads[1][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-12

@@ -62,6 +62,21 @@ def test_the_float32_slice_is_scanned(path):
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
 
 
+# the KiloNeRF and harness slice's modules: each is found by the scan above
+KILO_SLICE = ["nerf_tpu_torch/ops/kilonerf.py", "nerf_tpu_torch/train/distill.py",
+              "nerf_tpu_torch/train/optim.py", "nerf_tpu_torch/train/checkpoint.py",
+              "nerf_tpu_torch/distill_kilonerf.py", "nerf_tpu_torch/bench.py",
+              "nerf_tpu_torch/ess_ert.py", "nerf_tpu_torch/quick_ess_ert.py",
+              "nerf_tpu_torch/performance_test.py", "nerf_tpu_torch/run.py",
+              "nerf_tpu_torch/serve.py", "nerf_tpu_torch/train/loop.py"]
+
+
+@pytest.mark.parametrize("path", KILO_SLICE)
+def test_the_kilonerf_and_harness_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
 CSRC = sorted(f for f in os.listdir(os.path.join(ROOT, "nerf_tpu_torch", "csrc"))
               if f.endswith((".cu", ".cuh")))
 

@@ -219,7 +219,7 @@ def test_render_options_from_cfg_match_jax():
     assert cfg.trained_model_dir == os.path.join("workspace", "trained_model", "nerf", "lego", "nerf")
 
 
-@pytest.mark.parametrize("override", [["network_module", "kilonerf"],
+@pytest.mark.parametrize("override", [["network_module", "triplane"],
                                       ["network.xyz_encoder.type", "spherical_harmonics"],
                                       ["network_module", "dnerf"]])
 def test_render_options_refuse_what_is_not_ported(override):
