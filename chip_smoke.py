@@ -174,7 +174,35 @@ Phases, each printed with its elapsed seconds:
      grouped products' share under torch.profiler, also of a request; one
      ESS-rebuild slab through the density with no point dropped (65,536 of
      them against float64), and the drop rate the JAX package's capacity
-     gives on one lattice plane.
+     gives on one lattice plane;
+ 29. lego data-parallel at world 1 over NCCL: python -m nerf_tpu_torch.train
+     in a subprocess with distributed True and torchrun's environment for
+     world 1, the epoch-49 state (bf16, 1024 rays, 64 + 128 samples, ESS) on
+     8 synthetic 800x800 images for 2 epochs of DP_STEPS steps, against the
+     same run in-process without distributed: the params equal bit for bit
+     (else within BWD_FRO_REL of the update), B1, B2 and B3 launched (the
+     rank's last line);
+ 30. the same state trained 2 epochs of DP2_STEPS steps by two ranks sharing
+     the card over gloo (dist_backend gloo) against world 1 in-process: losses
+     within STEP_LOSS_REL, params within BWD_FRO_REL of the update, rank 1
+     silent, ms a step of the second epoch from rank 0's epoch line; if gloo
+     refuses CUDA tensors (its own message; any other failure fails) the
+     phase prints that and ends;
+ 31. KiloNeRF (configs/nerf/lego_kilonerf.yaml at full width: 16^3
+     networks, hidden 32, 4 dispatch rounds, 1024 rays) trained from
+     init_nerf_params on phase 15's scene through the entry point, one
+     epoch of KILO_TRAIN_STEPS steps: the loss falls, B3 launched twice a
+     step and B1 never; one step through B3 against B3's plain version with
+     the same batch and fine samples (loss within STEP_LOSS_REL, every leaf
+     within KILO_GRAD_REL of its largest |value|);
+ 32. kilonerf_eval_ep at world 1 over NCCL (this process as the rank) on
+     that step's 196,608-point fine batch with the trained fine model,
+     against the dense kilonerf_eval at capacities that serve every point:
+     equal bit for bit, both timed; under the same group, phase 29's step
+     (phase 10's setting) through make_sharded_train_step with the group and
+     without one, in turns of DP_TIMED steps, each to a synchronize (the
+     medians), and the gradient all-reduce alone; bench_scaling's main at world 1 in a temp
+     directory (its one rank over NCCL): its record, the only file.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -2596,6 +2624,368 @@ def kilo_phase(root, dev, scene_dir, model_dir):
             "occupied": float(service.grid.occupied.float().mean())}, b3_err
 
 
+
+# The data- and expert-parallel slice (phases 29-32).
+DP_STEPS = 50  # steps an epoch in phase 29 (two epochs)
+DP_TIMED = 20  # steps a turn in phase 32's world-1 step timing (eight turns)
+DP2_STEPS = 10  # steps an epoch in phase 30 (two epochs: the second is timed)
+DP_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "8",
+                "train_dataset.H", "800", "train_dataset.W", "800", "grid_rebuild_ep", "1",
+                "save_latest_ep", "1", "eval_ep", "1000", "log_interval", "10",
+                "scan_chunk", "10"]
+KILO_TRAIN_STEPS = 50
+KILO_GRAD_REL = 1e-4  # a KiloNeRF step's gradient leaves, B3 against its plain version
+LEGO_PARAM_LEAVES = 48
+
+
+def _copy_lego_state(root, model_dir):
+    os.makedirs(model_dir)
+    for f in ("latest.npz", "latest.json"):
+        shutil.copy(os.path.join(root, "checkpoints/nerf/lego/nerf", f), model_dir)
+
+
+def _launch_counts(text):
+    """The trainer's last line, "kernel launches: name n, ..." -> {name: n}."""
+    line = [l for l in text.splitlines() if l.startswith("kernel launches: ")][-1]
+    return {k: int(v) for k, v in (kv.rsplit(" ", 1) for kv in
+                                  line[len("kernel launches: "):].split(", "))}
+
+
+def _step_ms(text, epoch, steps):
+    """ms a step from the trainer's epoch line (it prints 10 ms steps)."""
+    m = re.search(rf"epoch {epoch} done in (\S+)s", text)
+    check(m is not None, f"no epoch {epoch} line")
+    return float(m.group(1)) * 1e3 / steps
+
+
+def _param_gap(a_dir, b_dir, base_dir):
+    """The 48 lego param leaves of two checkpoints: (exactly equal, the
+    largest ||a - b|| / ||b - base|| over the leaves: the distance against
+    the update from ``base``'s state)."""
+    import numpy as np
+
+    def leaves(d):
+        with np.load(os.path.join(d, "latest.npz")) as data:
+            return [np.asarray(data[f"leaf_{i}"], np.float64) for i in range(LEGO_PARAM_LEAVES)]
+
+    a, b, base = leaves(a_dir), leaves(b_dir), leaves(base_dir)
+    exact = all(np.array_equal(x, y) for x, y in zip(a, b))
+    rel = max(float(np.linalg.norm(x - y) / max(np.linalg.norm(y - z), 1e-30))
+              for x, y, z in zip(a, b, base))
+    return exact, rel
+
+
+def _losses(text):
+    return [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
+
+
+def dp_nccl_phase(root, work, service):
+    """Phase 29: the epoch-49 lego state (bf16, 1024 rays, 64 + 128
+    samples, ESS) trained for 2 epochs of DP_STEPS steps by python -m
+    nerf_tpu_torch.train in a subprocess with distributed True and
+    torchrun's environment for world 1 (NCCL), and in-process without
+    distributed; the parameters equal, or within BWD_FRO_REL of the update
+    in relative norm; B1, B2 and B3 launched. Returns the launches and what
+    phase 32 times the step on, under its world-1 group: phase 10's setting
+    (the committed state, the served grid, the model's own views)."""
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.parallel import mesh
+    from nerf_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    base = [*DP_OVERRIDES, "ep_iter", str(DP_STEPS), "train.epoch", "52"]
+    dirs = {k: os.path.join(work, f"dp_{k}") for k in ("plain", "nccl")}
+    for d in dirs.values():
+        _copy_lego_state(root, d)
+    state, _, launches, text, _ = _drive_trainer(
+        cfg_file, [*base, "trained_model_dir", dirs["plain"], "record_dir",
+                   os.path.join(work, "dp_plain_rec")], _counters())
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(mesh.free_port()),
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "nerf_tpu_torch.train", "--cfg_file", cfg_file,
+                           *base, "trained_model_dir", dirs["nccl"], "record_dir",
+                           os.path.join(work, "dp_nccl_rec"), "distributed", "True"],
+                          env=env, capture_output=True, text=True, timeout=600)
+    nccl_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"the NCCL rank failed: {proc.stderr[-3000:]}")
+    check("data-parallel: 1 ranks, nccl on cuda" in proc.stdout, "the rank did not run over NCCL")
+    nccl = _launch_counts(proc.stdout)
+    steps = 2 * DP_STEPS
+    check(all(nccl[k] > 0 for k in launches), f"the NCCL run's launches {nccl}")
+    check(nccl["fused_nerf_bwd"] == launches["fused_nerf_bwd"] == 2 * steps,
+          "B2 is not launched twice a step")
+    check(_losses(proc.stdout) == _losses(text) or all(
+        abs(a - b) <= STEP_LOSS_REL * abs(b) for a, b in zip(_losses(proc.stdout), _losses(text))),
+        "the NCCL run's logged losses differ")
+    exact, rel = _param_gap(dirs["nccl"], dirs["plain"],
+                            os.path.join(root, "checkpoints/nerf/lego/nerf"))
+    log(f"lego at world 1 over NCCL (a subprocess, {nccl_s:.2f} s with its start): "
+        f"launches over {steps} steps and 2 ESS rebuilds {nccl} (in-process without "
+        f"distributed {launches}); params after {steps} steps "
+        + ("equal bit for bit" if exact else f"{rel:.3g} of the update apart (tol {BWD_FRO_REL})"))
+    check(exact or rel <= BWD_FRO_REL, "world 1 over NCCL leaves the trajectory without it")
+    lego = load_checkpoint(os.path.join(root, "checkpoints/nerf/lego/nerf"), state)[0]
+    return {"launches": nccl, "steps": steps, "cfg": make_cfg(cfg_file, base), "state": lego,
+            "grid": service.grid, "data": _model_views(service)}
+
+
+def dp_step_times(group, dp, dev):
+    """Phase 32's timing of phase 29's step: make_sharded_train_step over
+    the world-1 NCCL ``group`` and without a group, on one clone of the
+    state, in turns (NCCL, none, none, NCCL, twice) of DP_TIMED steps, each
+    step timed by the host clock up to a synchronize; then all_reduce_mean
+    alone on the step's gradient leaves and its two losses, the same way.
+    Returns the medians (ms) and each mode's quartiles."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.parallel.mesh import all_reduce_mean
+    from nerf_tpu_torch.parallel.train_step import make_sharded_train_step
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.tree import tree_leaves
+
+    def clocked(fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    cfg = dp["cfg"]
+    opts, tx, n_rays = RenderOptions.from_cfg(cfg), make_optimizer(cfg), int(cfg.task_arg.N_rays)
+    st = _clone_state(dp["state"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    steps = {"nccl": make_sharded_train_step(group, tx, opts, n_rays),
+             "none": make_sharded_train_step(None, tx, opts, n_rays)}
+    run = {k: (lambda f=f: f(st, *dp["data"], gen, dp["grid"])) for k, f in steps.items()}
+    for k in steps:
+        for _ in range(3):
+            run[k]()
+    torch.cuda.synchronize()
+    times = {k: [] for k in steps}
+    for k in ("nccl", "none", "none", "nccl") * 2:
+        times[k] += [clocked(run[k]) for _ in range(DP_TIMED)]
+    q = {k: np.percentile(v, [25, 50, 75]) for k, v in times.items()}
+    leaves = [torch.zeros_like(t) for t in tree_leaves(st.params)]
+    leaves += [torch.zeros((), device=dev), torch.zeros((), device=dev)]
+    exchange = float(np.median([clocked(lambda: all_reduce_mean(leaves))
+                                for _ in range(DP_TIMED)]))
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(st.params)),
+          "the timed steps' params are not finite")
+    log(f"lego step at world 1 ({n_rays} rays), {4 * DP_TIMED} steps of each in turns of "
+        f"{DP_TIMED}, each to a synchronize (quartiles, ms): over NCCL {q['nccl'].round(4)}, "
+        f"without a group {q['none'].round(4)}; medians {q['nccl'][1] - q['none'][1]:.4f} ms "
+        f"apart; all_reduce_mean alone on the {len(leaves) - 2} gradient leaves "
+        f"({sum(t.numel() for t in leaves):,} values) and 2 losses, median {exchange:.4f} ms")
+    return {"nccl_ms": float(q["nccl"][1]), "plain_ms": float(q["none"][1]),
+            "exchange_ms": exchange,
+            "iqr_ms": {k: float(v[2] - v[0]) for k, v in q.items()}}
+
+
+def dp_gloo_phase(root, work):
+    """Phase 30: two ranks on the one card over gloo: the epoch-49 lego
+    state trained 2 epochs of DP2_STEPS steps at world 2 (each rank 512
+    rays of the 1024) against the same steps in-process at world 1, the
+    second epochs timed: every logged loss
+    within STEP_LOSS_REL, the params within BWD_FRO_REL of the update in
+    relative norm, B1, B2 and B3 launched. If gloo refuses CUDA tensors
+    (its own message in a rank's output; any other failure fails the phase)
+    the phase says so and ends: the 2-rank case stays a CPU test. Returns
+    its numbers or None."""
+    from nerf_tpu_torch.parallel import mesh
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    base = [*DP_OVERRIDES, "ep_iter", str(DP2_STEPS), "train.epoch", "52"]
+    dirs = {k: os.path.join(work, f"dp2_{k}") for k in ("one", "two")}
+    for d in dirs.values():
+        _copy_lego_state(root, d)
+    _, _, _, text1, _ = _drive_trainer(cfg_file, [*base, "trained_model_dir", dirs["one"],
+                                                  "record_dir", os.path.join(work, "dp2_rec1")],
+                                       _counters())
+    logs = os.path.join(work, "dp2_logs")
+    os.makedirs(logs)
+    t = time.perf_counter()
+    try:
+        mesh.launch("nerf_tpu_torch.train", ["--cfg_file", cfg_file, *base, "trained_model_dir",
+                                             dirs["two"], "record_dir",
+                                             os.path.join(work, "dp2_rec2"), "distributed",
+                                             "True", "dist_backend", "gloo"], 2, "cuda",
+                    log_dir=logs, timeout=600)
+    except RuntimeError as e:
+        text = "".join(open(os.path.join(logs, f"rank{r}.log")).read() for r in (0, 1))
+        refused = re.search(r"(?i)(cuda|device)[^\n]*(not supported|unsupported|not implemented)"
+                            r"|(not supported|unsupported|not implemented)[^\n]*(cuda|device)",
+                            text)
+        check(refused is not None and "nccl" not in text.lower(),
+              f"the gloo ranks failed ({e}): {text[-3000:]}")
+        log(f"gloo refuses CUDA tensors here: {refused.group(0)}; the 2-rank case stays a CPU "
+            f"test (tests/test_torch_parallel.py)")
+        return None
+    secs = time.perf_counter() - t
+    text2 = open(os.path.join(logs, "rank0.log")).read()
+    check("data-parallel: 2 ranks, gloo on cuda" in text2, "the ranks did not run over gloo")
+    check("epoch" not in open(os.path.join(logs, "rank1.log")).read(), "rank 1 printed the log")
+    l1, l2 = _losses(text1), _losses(text2)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    exact, rel = _param_gap(dirs["two"], dirs["one"],
+                            os.path.join(root, "checkpoints/nerf/lego/nerf"))
+    two = _launch_counts(text2)
+    ms2 = _step_ms(text2, 51, DP2_STEPS)
+    log(f"gloo takes CUDA tensors: lego at world 2, both ranks on one card ({secs:.2f} s with "
+        f"their start): {ms2:.3f} ms a step (the second epoch of {DP2_STEPS}) against "
+        f"{_step_ms(text1, 51, DP2_STEPS):.3f} at world 1 in-process; rank 0's launches "
+        f"{two}; logged losses {l2} against {l1} (max rel {loss_rel:.3g}, tol "
+        f"{STEP_LOSS_REL}); params "
+        + ("equal bit for bit" if exact else f"{rel:.3g} of the update apart (tol {BWD_FRO_REL})"))
+    check(len(l1) == len(l2) == 2 * DP2_STEPS // 10 and loss_rel <= STEP_LOSS_REL,
+          "world 2's losses leave world 1's")
+    check(exact or rel <= BWD_FRO_REL, "world 2's params leave world 1's")
+    check(all(two[k] > 0 for k in ("fused_nerf_eval", "fused_nerf_bwd", "integrate")),
+          "a kernel was not launched at world 2")
+    return {"ms": ms2, "launches": two}
+
+
+def kilo_train_phase(root, work, scene_dir, dev):
+    """Phase 31: KiloNeRF (configs/nerf/lego_kilonerf.yaml: 16^3 networks of
+    hidden width 32, 4 dispatch rounds, 1024 rays) trained from
+    init_nerf_params on phase 15's Blender scene through the trainer's entry
+    point, one epoch of KILO_TRAIN_STEPS steps: the loss falls, B3 launched
+    and B1 not; one step's loss and gradients on the kernel path against the
+    plain path (the same batch and fine samples): loss within STEP_LOSS_REL,
+    every leaf within KILO_GRAD_REL of its largest |value|; the fine batch
+    of that step for phase 32. Returns (numbers, the trained fine model, its
+    config, the fine batch's points and directions)."""
+    import torch
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.data import make_dataset
+    from nerf_tpu_torch.ops import fused_mlp, integrate as tint, kilonerf as tk
+    from nerf_tpu_torch.render import renderer
+    from nerf_tpu_torch.tools.f32_check import replayed_fine_samples
+    from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch
+
+    kfile = os.path.join(root, "configs/nerf/lego_kilonerf.yaml")
+    over = [*_scene_opts(root, scene_dir), "trained_model_dir", os.path.join(work, "kilo_train"),
+            "record_dir", os.path.join(work, "kilo_train_rec"), "ep_iter",
+            str(KILO_TRAIN_STEPS), "train.epoch", "1", "log_interval", "10", "scan_chunk", "10"]
+    counters = {"fused_nerf_eval": fused_mlp.fused_nerf_eval, "integrate": tint.integrate}
+    state, grid, launches, text, secs = _drive_trainer(kfile, over, counters)
+    losses = _losses(text)
+    rate = re.search(r"epoch 0 done in (\S+)s  \((\S+) train rays/s\)", text)
+    check(rate is not None, "no epoch line")
+    step_ms = float(rate.group(1)) * 1e3 / KILO_TRAIN_STEPS
+    log(f"KiloNeRF trained from images: {secs:.2f} s (load, {KILO_TRAIN_STEPS} steps, "
+        f"checkpoint), {step_ms:.2f} ms a step, {rate.group(2)} train rays/s (first steps "
+        f"included); losses {losses}; launches {launches}")
+    check(len(losses) == KILO_TRAIN_STEPS // 10 and all(math.isfinite(v) for v in losses)
+          and losses[-1] < losses[0], "the KiloNeRF loss did not fall")
+    check(launches["integrate"] == 2 * KILO_TRAIN_STEPS and launches["fused_nerf_eval"] == 0,
+          "KiloNeRF training did not composite through B3 alone")
+
+    cfg = make_cfg(kfile, over)
+    opts = renderer.RenderOptions.from_cfg(cfg)
+    ds = make_dataset(cfg, "train")
+    images = torch.from_numpy((ds.images * 255).round().astype("uint8")).to(dev)
+    poses = torch.as_tensor(ds.poses, dtype=torch.float32, device=dev)
+    K = torch.as_tensor(ds.K, dtype=torch.float32, device=dev)
+    n_rays = int(cfg.task_arg.N_rays)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ro, rd, tgt = sample_ray_batch(gen, images, poses, K, n_rays)
+    rng, record, out = gen.get_state(), [], []
+    n_fine = n_rays * (opts.n_samples + opts.n_importance)
+    with _spy(tk, "kilonerf_eval", lambda a, kw: a[1].shape[0] == n_fine, limit=1) as fine:
+        for o in (opts, dataclasses.replace(opts, use_integrate_kernel=False)):
+            gen.set_state(rng)
+            tint.integrate.launches = 0
+            with replayed_fine_samples(record):
+                out.append(loss_and_grads(state.params, ro, rd, tgt, o, grid, gen))
+            out[-1] += (tint.integrate.launches,)
+    torch.cuda.synchronize()
+    (lk, _, gk, nk), (lp, _, gp, npl) = out
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    worst = max((float((a - b).abs().max()) / (KILO_GRAD_REL * float(b.abs().max())), i)
+                for i, (a, b) in enumerate(zip(gk, gp)))
+    log(f"KiloNeRF step, B3 against its plain version (the same batch and fine samples): loss "
+        f"{float(lk):.7f} vs {float(lp):.7f} (rel {loss_rel:.3g}, tol {STEP_LOSS_REL}); worst "
+        f"of {len(gk)} gradient leaves {worst[1]} at {worst[0]:.3g} of its bound "
+        f"({KILO_GRAD_REL} of its largest |value|); B3 launches {nk} and {npl}")
+    check(nk == 2 and npl == 0, "the kernel path did not composite through B3")
+    check(loss_rel <= STEP_LOSS_REL and worst[0] <= 1.0, "the KiloNeRF step's gradients disagree")
+    fpts, fdirs = fine[0][0][1].detach(), fine[0][0][2].detach()
+    fine_model = {k: {n: t.detach() for n, t in v.items()}
+                  for k, v in state.params["fine"].items()}
+    return ({"step_ms": step_ms, "rays_per_s": float(rate.group(2).replace(",", "")),
+             "losses": losses}, fine_model, renderer.kilo_config_from_opts(opts), fpts, fdirs)
+
+
+def ep_phase(dev, smi, params, kcfg, pts, dirs, dp):
+    """Phase 32: kilonerf_eval_ep at world 1 over NCCL (this process as the
+    rank) on phase 31's fine batch with the trained fine model, against the
+    dense kilonerf_eval at capacities that serve every point: equal bit for
+    bit; both timed. Under the same group, phase 29's lego step timed with
+    and without it (``dp_step_times``). Then python -m nerf_tpu_torch.bench_scaling's main
+    (in-process; its rank is a process) at world 1 in a temp directory as
+    its working directory: its record, the only file it writes. Returns the
+    numbers."""
+    import torch
+    from nerf_tpu_torch.ops import kilonerf as tk
+    from nerf_tpu_torch.parallel import mesh
+    from nerf_tpu_torch.parallel.kilonerf_ep import kilonerf_eval_ep, shard_kilonerf_params
+
+    keys = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(mesh.free_port()))
+    try:
+        check(mesh.init_distributed(device=dev), "a process group was already up")
+        group = mesh.data_group(dev, owned=True)
+        import torch.distributed as dist
+
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        n = pts.shape[0]
+        cap = tk.no_drop_capacity(pts, kcfg)
+        with torch.no_grad():
+            local = shard_kilonerf_params(params, group)
+            got = kilonerf_eval_ep(local, pts, dirs, kcfg, group, send_capacity=n,
+                                   expert_capacity=cap)
+            want = tk.kilonerf_eval(params, pts, dirs, kcfg, capacity=cap)
+            ep_ms = time_ms(lambda: kilonerf_eval_ep(local, pts, dirs, kcfg, group, n, cap), 5)
+            dense_ms = time_ms(lambda: tk.kilonerf_eval(params, pts, dirs, kcfg, capacity=cap), 5)
+        diff = float((got - want).abs().max())
+        log(f"kilonerf_eval_ep at world 1 over NCCL on the KiloNeRF step's fine batch ({n} "
+            f"points, send capacity {n}, expert capacity {cap}, every point served): "
+            f"max|ep - dense| {diff:.3g} ({'equal bit for bit' if torch.equal(got, want) else 'NOT equal'}); "
+            f"{ep_ms:.3f} ms against the dense kilonerf_eval's {dense_ms:.3f} ms")
+        check(torch.equal(got, want), "EP at world 1 differs from the dense evaluation")
+        step_times = dp_step_times(group, dp, dev)
+        mesh.destroy(group)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    from nerf_tpu_torch import bench_scaling
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # bench_scaling writes its record into the working directory
+        try:
+            rec, _, secs = _run_cli(bench_scaling.main, [])
+        finally:
+            os.chdir(cwd)
+        check(os.listdir(tmp) == ["scaling_results_torch.json"],
+              f"bench_scaling wrote {os.listdir(tmp)}")
+        with open(os.path.join(tmp, "scaling_results_torch.json")) as f:
+            check(json.load(f) == rec, "bench_scaling's file is not its record")
+    log(f"bench_scaling at world 1 ({secs:.1f} s): {json.dumps(rec)}")
+    check(rec["backend"] == "nccl" and list(rec["results"]) == ["1"] and rec["device"] == smi
+          and rec["results"]["1"] > 0, "bench_scaling's record")
+    return {"ep_ms": ep_ms, "dense_ms": dense_ms, "points": n, "scaling": rec["results"]["1"],
+            **step_times}
+
+
 def main() -> int:
     import torch
 
@@ -2786,7 +3176,25 @@ def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
         f"{distilled['psnr']:.2f} dB against the teacher; KiloNeRF {SCENE}x{SCENE} frame "
         f"{kilo['frame_ms']:.1f} ms, {SIZE}x{SIZE} request {kilo['request_ms']:.2f} ms, "
         f"kilonerf_eval on a fine tile {kilo['eval_ms']:.3f} ms")
-    log("phase 29: done")
+    log("phase 29: lego data-parallel at world 1 over NCCL")
+    dp = dp_nccl_phase(root, work, service)
+    log("phase 30: two ranks on the card over gloo")
+    dp2 = dp_gloo_phase(root, work)
+    log("phase 31: KiloNeRF trained from images")
+    ktrain, kmodel, kcfg, fpts, fdirs = kilo_train_phase(root, work, scene_dir, dev)
+    log("phase 32: KiloNeRF expert-parallel and the lego step at world 1 over NCCL; "
+        "bench_scaling")
+    ep = ep_phase(dev, smi, kmodel, kcfg, fpts, fdirs, dp)
+    log(f"parallel slice on {smi}: lego {ep['nccl_ms']:.4f} ms a step at world 1 over NCCL, "
+        f"{ep['plain_ms']:.4f} without a group (medians; interquartile ranges "
+        f"{ep['iqr_ms']['nccl']:.4f}, {ep['iqr_ms']['none']:.4f}), the exchange alone "
+        f"{ep['exchange_ms']:.4f} ms; "
+        + (f"{dp2['ms']:.3f} ms a step at world 2 over gloo on one card; " if dp2 else
+           "world 2 over gloo not run on the card; ")
+        + f"KiloNeRF training {ktrain['step_ms']:.2f} ms a step ({ktrain['rays_per_s']:.0f} "
+        f"rays/s); EP tile {ep['ep_ms']:.3f} ms vs dense {ep['dense_ms']:.3f} ms "
+        f"({ep['points']} points); bench_scaling world 1 {ep['scaling']:.1f} rays/s")
+    log("phase 33: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(smi, flush=True)

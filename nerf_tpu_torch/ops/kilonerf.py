@@ -18,11 +18,13 @@ place for the whole precision policy). JAX's block-diagonal packing of 4
 networks a product only aligns its shapes to the TPU's matrix unit; it
 changes the order of sums, not the function, so the port does not copy it.
 
-``kilonerf_eval`` serves exactly the windows of the JAX package's
-``_dispatch`` but lays out slots only for the networks a round serves
-(``round_window``), with as many slots as the round's fullest network needs,
-and stops at the first round that serves no point: the slots it leaves out
-are the ones JAX fills with point 0 and discards.
+``kilonerf_eval`` (``eval_routed``) serves exactly the windows of the JAX
+package's ``_dispatch`` but lays out slots only for the networks a round
+serves (``round_window``), with as many slots as the round's fullest network
+needs, and stops at the first round that serves no point: the slots it
+leaves out are the ones JAX fills with point 0 and discards. ``dispatch``
+is JAX's [G, C] layout itself, which the expert-parallel exchange
+(``parallel/kilonerf_ep.py``) packs its send buffer by.
 """
 from __future__ import annotations
 
@@ -218,30 +220,43 @@ def served_per_round(pts: torch.Tensor, cfg: KiloConfig, capacity: int = 0) -> l
             for r in range(max(1, int(cfg.dispatch_rounds)))]
 
 
-def kilonerf_eval(params: Params, pts: torch.Tensor, dirs: torch.Tensor,
-                  cfg: KiloConfig = KiloConfig(), capacity: int = 0) -> torch.Tensor:
-    """pts, dirs [P, 3] -> raw [P, 4] (rgb_raw, sigma_raw). A point that no
-    round serves (its rank >= dispatch_rounds x capacity) stays exactly 0.
-    ``capacity`` <= 0: ``default_capacity``. Differentiable in ``params``."""
-    P = pts.shape[0]
-    G = n_networks(cfg)
-    C = capacity if capacity > 0 else default_capacity(P, cfg)
-    ids = assign_networks(pts, cfg)
+def dispatch(ids: torch.Tensor, G: int, capacity: int):
+    """The JAX package's ``_dispatch`` layout (one round, the rank window
+    [0, capacity)): ids [P] in [0, G] (G marks a row that goes nowhere) ->
+    (slot [P], the point's slot in its group or -1 when dropped;
+    gather_idx [G, capacity] the point in each slot, 0 for an empty one;
+    slot_valid [G, capacity]). Points keep their input order within a
+    group (the stable rank)."""
+    real = ids < G
+    rank = rank_in_network(torch.where(real, ids, G), G + 1)
+    slot = torch.where(real & (rank < capacity), rank, -1)
+    kept = torch.nonzero(slot >= 0).squeeze(1)
+    flat = ids[kept] * capacity + slot[kept]
+    gather_idx = torch.zeros(G * capacity, dtype=torch.long, device=ids.device)
+    gather_idx[flat] = kept
+    slot_valid = torch.zeros(G * capacity, dtype=torch.bool, device=ids.device)
+    slot_valid[flat] = True
+    return slot, gather_idx.view(G, capacity), slot_valid.view(G, capacity)
+
+
+def eval_routed(params: Params, emb: torch.Tensor, ids: torch.Tensor, G: int, capacity: int,
+                rounds: int, cfg: KiloConfig) -> torch.Tensor:
+    """Encoded points emb [P, 63 + 27] (local position, direction) through
+    the networks ``ids`` [P] in [0, G) of ``params`` (G networks), at most
+    ``capacity`` points a network a round for ``rounds`` rounds -> raw
+    [P, 4], exactly 0 for a point that no round serves."""
+    P = emb.shape[0]
     rank = rank_in_network(ids, G)
     counts = torch.bincount(ids, minlength=G)
-    # encode before the slot gather: the gather moves 90-wide rows and the
-    # sin/cos run on the P points, not on the slots
-    emb = torch.cat([freq_encode(global_to_local(pts, ids, cfg), cfg.xyz_freqs),
-                     freq_encode(dirs, cfg.dir_freqs)], -1)
     nx = freq_out_dim(3, cfg.xyz_freqs)
     out = emb.new_zeros(P, 4)
     max_load = int(counts.max()) if P else 0
-    for r in range(max(1, int(cfg.dispatch_rounds))):
-        lo = r * C
+    for r in range(max(1, int(rounds))):
+        lo = r * capacity
         if max_load <= lo:
             break  # ranks are contiguous: no later round serves a point either
-        active, sel, flat, cr = round_window(ids, rank, counts, max_load, lo, C)
-        gather = torch.zeros(active.shape[0] * cr, dtype=torch.long, device=pts.device)
+        active, sel, flat, cr = round_window(ids, rank, counts, max_load, lo, capacity)
+        gather = torch.zeros(active.shape[0] * cr, dtype=torch.long, device=emb.device)
         gather[flat] = sel  # empty slots evaluate point 0; nothing reads them
         embg = emb[gather].view(active.shape[0], cr, -1)
         sub = {k: {"w": params[k]["w"][active], "b": params[k]["b"][active]} for k in LAYERS}
@@ -249,6 +264,24 @@ def kilonerf_eval(params: Params, pts: torch.Tensor, dirs: torch.Tensor,
         out = out.index_put((sel,), raw.reshape(-1, 4)[flat])
         del embg, raw, sub, gather
     return out
+
+
+def encode(local: torch.Tensor, dirs: torch.Tensor, cfg: KiloConfig) -> torch.Tensor:
+    """[P, 3] local positions and directions -> their frequency encodings
+    [P, 63 + 27], before any slot gather: the gather then moves 90-wide
+    rows and the sin/cos run on the P points, not on the slots."""
+    return torch.cat([freq_encode(local, cfg.xyz_freqs), freq_encode(dirs, cfg.dir_freqs)], -1)
+
+
+def kilonerf_eval(params: Params, pts: torch.Tensor, dirs: torch.Tensor,
+                  cfg: KiloConfig = KiloConfig(), capacity: int = 0) -> torch.Tensor:
+    """pts, dirs [P, 3] -> raw [P, 4] (rgb_raw, sigma_raw). A point that no
+    round serves (its rank >= dispatch_rounds x capacity) stays exactly 0.
+    ``capacity`` <= 0: ``default_capacity``. Differentiable in ``params``."""
+    C = capacity if capacity > 0 else default_capacity(pts.shape[0], cfg)
+    ids = assign_networks(pts, cfg)
+    emb = encode(global_to_local(pts, ids, cfg), dirs, cfg)
+    return eval_routed(params, emb, ids, n_networks(cfg), C, cfg.dispatch_rounds, cfg)
 
 
 def kilonerf_naive(params: Params, pts: torch.Tensor, dirs: torch.Tensor, cfg: KiloConfig,

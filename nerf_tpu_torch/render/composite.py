@@ -9,10 +9,12 @@ transmittance is below the threshold (T only falls, so this is the mask
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from .sampling import draw
 
 
 def density_activation(sigma: torch.Tensor, kind: str = "relu") -> torch.Tensor:
@@ -39,7 +41,7 @@ def finish_maps(rgb_map, depth_map, acc_map, white_bkgd: bool) -> Dict[str, torc
 
 
 def composite(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor, *,
-              raw_noise_std: float = 0.0, generator: Optional[torch.Generator] = None,
+              raw_noise_std: float = 0.0, generator: Any = None,
               white_bkgd: bool = True, ert_threshold: Optional[float] = None,
               sigma_activation: str = "relu") -> Dict[str, torch.Tensor]:
     """raw: [N, S, 4] (rgb_raw, sigma_raw); z_vals: [N, S]; rays_d: [N, 3].
@@ -54,8 +56,8 @@ def composite(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor, *,
     rgb = torch.sigmoid(raw[..., :3])
     sigma = raw[..., 3]
     if raw_noise_std > 0.0:
-        sigma = sigma + torch.randn(sigma.shape, generator=generator, device=sigma.device,
-                                    dtype=sigma.dtype) * raw_noise_std
+        sigma = sigma + draw("normal", tuple(sigma.shape), generator, sigma.dtype,
+                             sigma.device) * raw_noise_std
     alpha = 1.0 - torch.exp(-density_activation(sigma, sigma_activation) * dists)
     trans = torch.cumprod(
         torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha[..., :-1] + 1e-10], dim=-1),

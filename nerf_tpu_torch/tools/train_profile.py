@@ -1,7 +1,7 @@
 """Where a train step's time goes on the GPU, by torch.profiler.
 
     python -m nerf_tpu_torch.tools.train_profile [--cfg_file FILE] [--steps 20] [--warmup 5]
-        [key value ...]
+        [--nccl] [key value ...]
 
 With the default configs/nerf/lego.yaml it resumes the committed lego state
 (checkpoints/nerf/lego/nerf, epoch 49), builds the serving path's
@@ -15,6 +15,11 @@ train steps (1024 rays, 64 + 128 samples) twice: once by the host clock
 with a synchronize per step, once under torch.profiler. Prints ms per step,
 the device's busy share (the kernels' summed time over the profiled wall
 time) and the kernels and host operators that take the most time per step.
+``--nccl``: first the step without a group and as a rank of a
+data-parallel run at world 1 (a lone NCCL process group; the gradients'
+all-reduce) in turns (NCCL, none, none, NCCL) of --steps steps, each turn
+timed by the host clock with a synchronize a step and by CUDA events with
+none; then the profile of the step over the group.
 """
 from __future__ import annotations
 
@@ -50,6 +55,8 @@ def main(argv=None) -> int:
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--warmup", type=int, default=5)
     parser.add_argument("--top", type=int, default=15)
+    parser.add_argument("--nccl", action="store_true",
+                        help="the step over a world-1 NCCL process group")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -82,13 +89,52 @@ def main(argv=None) -> int:
           f"parameters, {len(tree_leaves(state.params))} leaves")
     n_rays = int(cfg.task_arg.N_rays)
     gen = torch.Generator(device=dev).manual_seed(3)
+    group = None
+    if args.nccl:
+        from ..parallel.mesh import data_group, init_distributed
 
-    def step():
-        train_step(state, imgs, poses, K, tx, opts, n_rays, grid, gen)
+        init_distributed(device=dev)
+        group = data_group(dev, owned=True)
+        print(f"a rank of a world-1 {torch.distributed.get_backend()} group")
+
+    def step(g=group):
+        train_step(state, imgs, poses, K, tx, opts, n_rays, grid, gen, group=g)
 
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
+    if group is not None:
+        turns = {"nccl": [], "none": []}
+        for k in ("nccl", "none", "none", "nccl"):
+            g = group if k == "nccl" else None
+            host = []
+            for _ in range(args.steps):
+                t = time.perf_counter()
+                step(g)
+                torch.cuda.synchronize()
+                host.append(time.perf_counter() - t)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(args.steps):
+                step(g)
+            end.record()
+            torch.cuda.synchronize()
+            turns[k].append((float(np.median(host)) * 1e3, start.elapsed_time(end) / args.steps))
+        for k, v in turns.items():
+            print(f"{k}: turns of {args.steps} steps, ms per step (host-clock median, CUDA "
+                  f"events) {[(round(a, 4), round(b, 4)) for a, b in v]}; means "
+                  f"{np.mean([a for a, _ in v]):.4f}, {np.mean([b for _, b in v]):.4f}")
+        from ..parallel.mesh import all_reduce_mean
+
+        leaves = [torch.zeros_like(t) for t in tree_leaves(state.params)]
+        host = []
+        for _ in range(args.steps):
+            t = time.perf_counter()
+            all_reduce_mean(leaves)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t)
+        print(f"all_reduce_mean alone on the {len(leaves)} gradient leaves: host-clock median "
+              f"{float(np.median(host)) * 1e3:.4f} ms")
     times = []
     for _ in range(args.steps):
         t = time.perf_counter()
@@ -120,10 +166,21 @@ def main(argv=None) -> int:
         print(f"  {_device_us(e) / 1e3 / args.steps:8.4f}  {e.count / args.steps:6.1f}  "
               f"{e.key[:100]}")
     cpu = [e for e in events if e.device_type.name == "CPU"]
+    if group is not None:
+        print("the exchange's operators (ms per step, calls per step, host then device):")
+        for e in events:
+            if any(w in e.key.lower() for w in ("nccl", "allreduce", "all_reduce", "c10d")):
+                print(f"  {e.self_cpu_time_total / 1e3 / args.steps:8.4f}  "
+                      f"{e.count / args.steps:6.1f}  {_device_us(e) / 1e3 / args.steps:8.4f}  "
+                      f"{e.key[:100]}")
     print("top host operators by self CPU time (ms per step, calls per step):")
     for e in sorted(cpu, key=lambda e: e.self_cpu_time_total, reverse=True)[:args.top]:
         print(f"  {e.self_cpu_time_total / 1e3 / args.steps:8.4f}  {e.count / args.steps:6.1f}  "
               f"{e.key[:100]}")
+    if group is not None:
+        from ..parallel.mesh import destroy
+
+        destroy(group)
     return 0
 
 

@@ -11,6 +11,14 @@ Unlike the JAX package, which returns a new state, ``train_step`` updates
 the state's parameters and optimizer moments in place (no second copy of
 them on the device) and returns the step's statistics as device tensors, so
 a chunk of steps syncs with the host once.
+
+Data parallelism (``group``, a ``parallel.mesh.DataGroup``; JAX's ``mesh``):
+every rank draws the same global batch, renders and differentiates its own
+rows with its rows of the batch's random numbers (``RowShard``), and one
+all-reduce averages the gradients and the losses before the optimizer step
+(the work of ``DistributedDataParallel``, done by hand: the parameters are
+dict trees, not an ``nn.Module``). The clip and Adam follow the reduction,
+as JAX's psum precedes ``tx.update``, so every rank applies the same update.
 """
 from __future__ import annotations
 
@@ -19,9 +27,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import DataGroup, all_reduce_mean
 from ..render.occupancy import OccupancyGrid
 from ..render.rays import image_rays, rays_for_pixels
 from ..render.renderer import RenderOptions, render_rays
+from ..render.sampling import RowShard
 from ..tree import tree_leaves
 from .optim import OptState, Optimizer
 
@@ -91,32 +101,67 @@ def loss_and_grads(params: Dict[str, Any], rays_o, rays_d, target, opts: RenderO
     return loss.detach(), stats, list(grads)
 
 
+def _global_stats(grads: List[torch.Tensor], stats: Dict[str, torch.Tensor]
+                  ) -> Tuple[List[torch.Tensor], Dict[str, torch.Tensor]]:
+    """The ranks' mean gradients and the global batch's losses, from one
+    all-reduce: the mean of the ranks' MSEs (equal shards) is the batch's
+    MSE, and the PSNR is taken from that, not averaged."""
+    keys = [k for k in ("loss_coarse", "loss_fine") if k in stats]
+    reduced = all_reduce_mean(list(grads) + [stats[k].detach() for k in keys])
+    grads, losses = reduced[:len(grads)], dict(zip(keys, reduced[len(grads):]))
+    losses["psnr"] = -10.0 * torch.log10(losses.get("loss_fine", losses["loss_coarse"]))
+    losses["loss"] = sum(losses[k] for k in keys)
+    return grads, {k: losses[k] for k in stats}
+
+
+def apply_step(state: TrainState, rays_o: torch.Tensor, rays_d: torch.Tensor,
+               target: torch.Tensor, tx: Optimizer, opts: RenderOptions,
+               grid: Optional[OccupancyGrid] = None, generator: Any = None,
+               group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
+    """One optimizer step on a batch of rays. With ``group`` the batch is
+    the global one: this rank renders its rows (``group.rows``) with the
+    same rows of the batch's random numbers, and the gradients and losses
+    are averaged over the ranks (one all-reduce, even at world 1) before
+    ``tx.step``. Updates ``state`` in place; returns the stats (tensors)."""
+    if group is not None:
+        rows = group.rows(rays_o.shape[0])
+        generator = RowShard(generator, rows.start, rays_o.shape[0])
+        rays_o, rays_d, target = rays_o[rows], rays_d[rows], target[rows]
+    _, stats, grads = loss_and_grads(state.params, rays_o, rays_d, target, opts, grid, generator)
+    if group is not None:
+        grads, stats = _global_stats(grads, stats)
+    tx.step(tree_leaves(state.params), grads, state.opt_state)
+    state.step += 1
+    return {k: v.detach() for k, v in stats.items()}
+
+
 def train_step(state: TrainState, images_u8: torch.Tensor, poses: torch.Tensor,
                intrinsics: torch.Tensor, tx: Optimizer, opts: RenderOptions, n_rays: int,
                grid: Optional[OccupancyGrid] = None,
                generator: Optional[torch.Generator] = None, precrop_iters: int = 0,
-               precrop_frac: float = 0.5) -> Dict[str, torch.Tensor]:
-    """One step; updates ``state`` in place and returns its stats (tensors)."""
+               precrop_frac: float = 0.5,
+               group: Optional[DataGroup] = None) -> Dict[str, torch.Tensor]:
+    """One step on ``n_rays`` rays drawn from ``generator`` (the global
+    batch when ``group`` splits it); updates ``state`` in place and returns
+    its stats (tensors)."""
     rays_o, rays_d, target = sample_ray_batch(generator, images_u8, poses, intrinsics, n_rays,
                                               step=state.step, precrop_iters=precrop_iters,
                                               precrop_frac=precrop_frac)
-    _, stats, grads = loss_and_grads(state.params, rays_o, rays_d, target, opts, grid,
-                                     generator)
-    tx.step(tree_leaves(state.params), grads, state.opt_state)
-    state.step += 1
-    return {k: v.detach() for k, v in stats.items()}
+    return apply_step(state, rays_o, rays_d, target, tx, opts, grid, generator, group)
 
 
 def train_steps(state: TrainState, images_u8, poses, intrinsics, tx: Optimizer,
                 opts: RenderOptions, n_rays: int, n_steps: int,
                 grid: Optional[OccupancyGrid] = None,
                 generator: Optional[torch.Generator] = None, precrop_iters: int = 0,
-                precrop_frac: float = 0.5) -> Dict[str, float]:
-    """``n_steps`` train steps; returns the mean of each stat over them."""
+                precrop_frac: float = 0.5,
+                group: Optional[DataGroup] = None) -> Dict[str, float]:
+    """``n_steps`` train steps (data-parallel over ``group``: JAX's
+    ``mesh``); returns the mean of each stat over them."""
     sums: Dict[str, torch.Tensor] = {}
     for _ in range(n_steps):
         stats = train_step(state, images_u8, poses, intrinsics, tx, opts, n_rays, grid,
-                           generator, precrop_iters, precrop_frac)
+                           generator, precrop_iters, precrop_frac, group)
         for k, v in stats.items():
             sums[k] = sums[k] + v if k in sums else v
     return {k: float(v) / n_steps for k, v in sums.items()}

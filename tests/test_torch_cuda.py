@@ -77,6 +77,11 @@ Tolerances (as chip_smoke.py states them):
   through B3 at PSNR >= 40 dB from B3's plain version; one distillation
   step on the card: the loss and every gradient leaf within 1e-4 of its
   largest |value| of the same step on the CPU (float32 sums in other orders).
+- data and expert parallelism at world 1 over NCCL (a launched rank): the
+  lego step (bf16 kernels) equal bit for bit to the step without a group;
+  kilonerf_eval_ep equal bit for bit to kilonerf_eval; a KiloNeRF train step
+  through B3 against B3's plain version: loss within 1e-4 relative, every
+  gradient leaf within 1e-4 of its largest |value|.
 """
 import dataclasses
 import math
@@ -995,3 +1000,105 @@ def test_kilonerf_distill_loss_and_gradients_match_the_cpu(cuda):
     assert grads[0][0] == pytest.approx(grads[1][0], rel=1e-5)
     for a, b in zip(grads[0][1], grads[1][1]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-12
+
+
+def _lego_step_inputs(n, seed, dev):
+    """n rays of two orbit cameras, random targets and sorted fine samples."""
+    rng = np.random.default_rng(seed)
+    poses = np.stack([look_at_pose(t, 0.3, 4.0) for t in (0.5, 2.5)]).astype(np.float32)
+    K = torch.tensor([[40.0, 0, 16], [0, 40.0, 16], [0, 0, 1]])
+    from nerf_tpu_torch.render.rays import rays_for_pixels
+
+    idx, px, py = rng.integers(0, 2, n), rng.integers(0, 32, n), rng.integers(0, 32, n)
+    o, d = rays_for_pixels(torch.from_numpy(px.astype(np.float32)),
+                           torch.from_numpy(py.astype(np.float32)), K,
+                           torch.from_numpy(poses[idx]))
+    tgt = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    z = np.sort(rng.uniform(2.0, 6.0, (n, 128)), -1).astype(np.float32)
+    return o.numpy(), d.numpy(), tgt, z
+
+
+@pytest.mark.cuda
+def test_nccl_world_1_step_equals_the_step_without_a_group(cuda, tmp_path):
+    """The data-parallel step as rank 0 of 1 over NCCL (a launched process)
+    and the step without a group, in-process: the lego state, bf16 kernels,
+    256 rays with fed fine samples: the same loss and params bit for bit (one
+    rank's all-reduce is the identity, the kernels are deterministic)."""
+    from nerf_tpu_torch.parallel import dryrun, mesh
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import apply_step, init_state
+    from nerf_tpu_torch.train import loop
+    from nerf_tpu_torch.tree import tree_leaves
+
+    cfg_file = os.path.join(ROOT, "configs", "nerf", "lego.yaml")
+    cfg = make_cfg(cfg_file, [])
+    opts = dataclasses.replace(RenderOptions.from_cfg(cfg), enable_ess=False, perturb=0.0)
+    o, d, tgt, z = _lego_step_inputs(256, 1, cuda)
+    inp, out = str(tmp_path / "in.npz"), str(tmp_path / "out.npz")
+    np.savez(inp, opts=dryrun.opts_json(opts), cfg_file=cfg_file, overrides=np.array([], str),
+             ckpt=LEGO, rays_o=o, rays_d=d, target=tgt, z_fine=z)
+    mesh.launch("nerf_tpu_torch.parallel.dryrun", ["step", inp, out, "--device", "cuda"], 1,
+                "cuda")
+    tx = make_optimizer(cfg)
+    state = load_checkpoint(LEGO, init_state(loop.init_nerf_params(
+        torch.Generator().manual_seed(0), opts, cuda), tx))[0]
+    before = fused_mlp_bwd.fused_nerf_bwd.launches
+    with dryrun.fed_fine_samples(torch.from_numpy(z).to(cuda)):
+        stats = apply_step(state, *(torch.from_numpy(a).to(cuda) for a in (o, d, tgt)), tx, opts)
+    assert fused_mlp_bwd.fused_nerf_bwd.launches == before + 2
+    with np.load(out) as res:
+        assert float(res["loss"]) == float(stats["loss"])
+        for i, t in enumerate(tree_leaves(state.params)):
+            np.testing.assert_array_equal(res[f"leaf_{i}"], t.detach().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kilonerf_ep_world_1_nccl_equals_dense(cuda, tmp_path):
+    """kilonerf_eval_ep as rank 0 of 1 over NCCL (a launched process), 16^3
+    networks, 65,536 clustered points, capacities that serve every point,
+    against kilonerf_eval in-process: equal bit for bit (the exchange of one
+    rank moves nothing; the same products run in the same order)."""
+    import json
+
+    from nerf_tpu_torch.parallel import dryrun, mesh
+
+    tk, cfg, p = _kilo(cuda)
+    pts, dirs = _points(65536, 31, cuda)
+    pts = pts * 0.3
+    cap = tk.no_drop_capacity(pts, cfg)
+    want = tk.kilonerf_eval(p, pts, dirs, cfg, capacity=cap)
+    inp, out = str(tmp_path / "in.npz"), str(tmp_path / "out.npz")
+    np.savez(inp, cfg=json.dumps(cfg._asdict()), pts=pts.cpu().numpy(), dirs=dirs.cpu().numpy(),
+             capacities=np.array([[65536, cap]]), grads=np.array([False]),
+             **dryrun.kilo_leaves(p))
+    mesh.launch("nerf_tpu_torch.parallel.dryrun", ["ep", inp, out, "--device", "cuda"], 1, "cuda")
+    with np.load(out) as res:
+        np.testing.assert_array_equal(res["raw_0"], want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_kilonerf_train_step_through_b3_matches_plain(cuda, monkeypatch):
+    """One KiloNeRF train step (16^3 networks, 4 rounds, 256 rays, fed fine
+    samples) compositing through B3 and through its plain version: loss
+    within 1e-4 relative, every gradient leaf within 1e-4 of its largest
+    |value| (B3's forward sums in another order; both backwards recompute
+    the plain compositing)."""
+    from nerf_tpu_torch.train import loop
+    from nerf_tpu_torch.train.state import loss_and_grads
+
+    cfg = make_cfg(os.path.join(ROOT, "configs", "nerf", "lego_kilonerf.yaml"), [])
+    opts = dataclasses.replace(RenderOptions.from_cfg(cfg), perturb=0.0)
+    params = loop.init_nerf_params(torch.Generator().manual_seed(0), opts, cuda)
+    o, d, tgt, z = _lego_step_inputs(256, 2, cuda)
+    monkeypatch.setattr(rend, "sample_pdf", lambda *a, **k: torch.from_numpy(z).to(cuda))
+    out = []
+    for o_ in (opts, dataclasses.replace(opts, use_integrate_kernel=False)):
+        before = tint.integrate.launches
+        out.append(loss_and_grads(params, *(torch.from_numpy(a).to(cuda) for a in (o, d, tgt)),
+                                  o_, None) + (tint.integrate.launches - before,))
+    (lk, _, gk, nk), (lp, _, gp, npl) = out
+    assert nk == 2 and npl == 0
+    assert float(lk) == pytest.approx(float(lp), rel=1e-4)
+    assert len(gk) == 20
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

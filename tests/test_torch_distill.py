@@ -265,7 +265,10 @@ def test_missing_kilonerf_checkpoint_raises(tmp_path):
 def test_trainer_refuses_kilonerf(tmp_path):
     from nerf_tpu_torch.train.loop import train
 
+    """The trainer takes KiloNeRF now (it trains from images, as the JAX
+    package's does): with lego's config and no Blender data on disk, what
+    stops it is the missing images, not the model."""
     cfg = make_cfg(os.path.join(ROOT, "configs", "nerf", "lego_kilonerf.yaml"),
-                   ["workspace", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="distill"):
+                   ["workspace", str(tmp_path), "train_dataset.data_root", str(tmp_path)])
+    with pytest.raises(FileNotFoundError):
         train(cfg, device="cpu")

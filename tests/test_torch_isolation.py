@@ -77,6 +77,20 @@ def test_the_kilonerf_and_harness_slice_is_scanned(path):
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
 
 
+# the data- and expert-parallel slice's modules: each is found by the scan above
+PARALLEL_SLICE = ["nerf_tpu_torch/parallel/__init__.py", "nerf_tpu_torch/parallel/multihost.py",
+                  "nerf_tpu_torch/parallel/mesh.py", "nerf_tpu_torch/parallel/train_step.py",
+                  "nerf_tpu_torch/parallel/kilonerf_ep.py", "nerf_tpu_torch/parallel/dryrun.py",
+                  "nerf_tpu_torch/bench_scaling.py", "nerf_tpu_torch/train/__main__.py",
+                  "nerf_tpu_torch/render/sampling.py", "nerf_tpu_torch/render/composite.py"]
+
+
+@pytest.mark.parametrize("path", PARALLEL_SLICE)
+def test_the_parallel_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
 CSRC = sorted(f for f in os.listdir(os.path.join(ROOT, "nerf_tpu_torch", "csrc"))
               if f.endswith((".cu", ".cuh")))
 

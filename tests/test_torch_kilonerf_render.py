@@ -138,9 +138,16 @@ def test_grid_rebuild_from_the_kilonerf_density():
 
 
 def test_init_nerf_params_shares_one_model():
+    """One draw of the model for both passes, as JAX's {"coarse": p, "fine":
+    p}; the fine pass holds a copy of it, so that training moves the two
+    apart as JAX's two leaves move."""
     opts = renderer.RenderOptions(**SMALL)
     p = init_nerf_params(torch.Generator().manual_seed(0), opts)
-    assert p["coarse"] is p["fine"] and p["coarse"]["l3"]["w"].shape == (64, 16, 17)
+    assert p["coarse"]["l3"]["w"].shape == (64, 16, 17)
+    for k in tk.LAYERS:
+        for n in ("w", "b"):
+            c, f = p["coarse"][k][n], p["fine"][k][n]
+            assert torch.equal(c, f) and c.data_ptr() != f.data_ptr()
 
 
 @pytest.fixture(scope="module")
