@@ -202,7 +202,34 @@ Phases, each printed with its elapsed seconds:
      (phase 10's setting) through make_sharded_train_step with the group and
      without one, in turns of DP_TIMED steps, each to a synchronize (the
      medians), and the gradient all-reduce alone; bench_scaling's main at world 1 in a temp
-     directory (its one rank over NCCL): its record, the only file.
+     directory (its one rank over NCCL): its record, the only file;
+ 33. every encoder type of nerf_tpu_torch.models.encoders.get_encoder at the
+     JAX package's defaults (ENC_CFGS; the aliases share their code) on a
+     lego step's fine batch of 196,608 points (xyz uniform in the bbox, t
+     uniform over frames 0-59, or over [0, 1] for the D-NeRF types; unit
+     directions for SH): forward and backward of sum(out^2) through the
+     kernels and through the plain path (plain=True) on the same tree:
+     outputs equal, each bf16 table's gradient per element within
+     hash_gather.scatter_add_tolerance of the plain scatter-add of the same
+     cotangent rows, every float32 leaf within ENC_LEAF_REL of its largest
+     |value|; B4 and B4' launched once a table under every hash-based type
+     and never under frequency, SH, tri-plane and the frequency or tri-plane
+     D-NeRF; each type's ms; B4 and B4' alone on the cuda_hashgrid_4d rows
+     (16 corners x 16 levels x 196,608 = 50,331,648 rows of 4 bytes) and the
+     hashgrid rows (25,165,824), each with its bound and library call
+     (their "encoder_shapes" in the kernels line);
+ 34. configs/img_fit/lego_view0.yaml on view 0 of phase 15's scene
+     (input_ratio 0.5, N_pixels 8192) through python -m
+     nerf_tpu_torch.train's main for IMG_FIT_EPOCHS epochs, then run --type
+     evaluate: the loss finite and falling, metrics.json and gt_pred.png
+     written, the checkpoint loaded back, no kernel launched; one step's
+     loss and gradients on the card against the CPU's with TF32 allowed
+     (within IMG_FIT_STEP_REL); the PSNR and ms a warm step;
+ 35. a light-stage rig (4 cameras x 2 frames at 1024x1024, non-zero
+     distortion) through the loader at ratios 1.0 and 0.5 on this machine,
+     which has no cv2: train batches of 1024 rays and a test image, rays
+     finite and of unit direction, an rgb row a ray; host ms of a first
+     read and of a batch.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -1440,6 +1467,81 @@ def hash_step_gate(label, lk, gk, step, small_leaves):
           f"hash train step gradients disagree ({label} parameters)")
 
 
+def gather_times(label, table, idx):
+    """B4 alone on (table [R, W], idx [N]) beside its bound, plain version
+    and library call (torch.index_select)."""
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+
+    n = idx.shape[0]
+    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
+    lib, stream = hash_gather._lib(), torch.cuda.current_stream().cuda_stream
+    row_b = table.shape[1] * table.element_size()
+    gargs = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n, row_b, stream)
+    check(lib.launch_gather_rows(*gargs) == 0, "launch_gather_rows failed")
+    ms = time_ms(lambda: lib.launch_gather_rows(*gargs), reps=50)
+    plain_ms = time_ms(lambda: hash_gather.gather_rows_plain(table, idx), reps=20)
+    library_ms = time_ms(lambda: torch.index_select(table, 0, idx), reps=20)
+    distinct = int(torch.unique(idx).numel())
+    # bytes these inputs need: each index once, each distinct row once, each
+    # gathered row written once
+    nbytes = 4 * n + distinct * row_b + n * row_b
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"gather_rows {label}, {n} rows of {row_b} B ({distinct} distinct of {table.shape[0]}): "
+        f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the bound's bytes, "
+        f"{bound / ms:.3f} of the bound), plain {plain_ms:.4f} ms, torch.index_select "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms (HBM; a table that fits the 50 MB L2 "
+        f"serves repeated rows for less)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def scatter_times(label, sidx, cot, n_rows, previous=True):
+    """B4' alone (and, with ``previous``, in turns with the atomic kernel and
+    its three launches alone) beside its bound, byte floor, plain version and
+    library call (index_add_ in the cotangent's dtype)."""
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+
+    n, width = cot.shape
+    dev = cot.device
+    lib, stream = hash_gather._lib(), torch.cuda.current_stream().cuda_stream
+    acc = torch.empty((n_rows, width), device=dev)
+    res = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
+    sargs = (sidx.data_ptr(), cot.data_ptr(), acc.data_ptr(), res.data_ptr(), n_rows, n, width,
+             int(cot.dtype == torch.bfloat16))
+    calls = {"new": lambda: lib.launch_scatter_add_rows(*sargs, stream),
+             "old": lambda: lib.launch_scatter_add_rows_atomic(*sargs, stream)}
+    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_scatter_add_rows failed")
+    if previous:
+        turns = [time_ms(calls[k], reps=50) for k in ("new", "old", "old", "new")]
+        sms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        parts = [time_ms(lambda: lib.launch_scatter_add_rows_part(*sargs, i, stream), reps=50)
+                 for i in range(3)]
+        extra = (f"previous (atomic) kernel {old_ms:.4f} ms (turns "
+                 f"{', '.join(f'{t:.4f}' for t in turns)}); its launches alone: memset "
+                 f"{parts[0]:.4f}, accumulation {parts[1]:.4f}, rounding {parts[2]:.4f} ms; ")
+    else:
+        sms, extra = time_ms(calls["new"], reps=20), ""
+    splain_ms = time_ms(lambda: hash_gather.scatter_add_rows_plain(sidx, cot, n_rows), reps=20)
+    lib_buf = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
+    slib_ms = time_ms(lambda: lib_buf.zero_().index_add_(0, sidx, cot), reps=20)
+    # indices and cotangent rows read once, the gradient table written once
+    snbytes = 4 * n + n * width * cot.element_size() + n_rows * width * cot.element_size()
+    sbound = snbytes / PEAK_BYTES * 1e3
+    # this design's floor: also the float32 buffer zeroed, then read by the rounding
+    floor = (snbytes + 2 * n_rows * width * 4) / PEAK_BYTES * 1e3
+    runs = int(hash_gather.warp_runs(sidx)[2][:n].sum())
+    log(f"scatter_add_rows {label}, {n} rows of {width} {cot.dtype} into {n_rows} ({runs} runs "
+        f"in warps of 32 rows): kernel {sms:.4f} ms, {extra}plain {splain_ms:.4f} ms, "
+        f"index_add_ in {cot.dtype} {slib_ms:.4f} ms, bound {sbound:.4f} ms ({sbound / sms:.3f} "
+        f"of it), this design's byte floor {floor:.4f} ms")
+    if previous:
+        check(sms < old_ms, "the scatter-add is not faster than the previous (atomic) kernel")
+    return {"ms": sms, "plain_ms": splain_ms, "bound_ms": sbound, "bound_by": "bytes",
+            "library_ms": slib_ms}
+
+
 def hash_times_phase(cfg, state, grid, data, dev, fine_g, fine_s):
     """A window of warm hash-grid train steps; the gather and the scatter-add
     on the fine batch beside their bounds, plain versions and library calls."""
@@ -1476,59 +1578,8 @@ def hash_times_phase(cfg, state, grid, data, dev, fine_g, fine_s):
         f"median {np.median(w):.3f}, max {w.max():.3f}, std {w.std():.3f} ms; launches per "
         f"step {per_step}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    table, idx = fine_g
-    n = idx.shape[0]
-    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=dev)
-    lib, stream = hash_gather._lib(), torch.cuda.current_stream().cuda_stream
-    row_b = table.shape[1] * table.element_size()
-    gargs = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n, row_b, stream)
-    check(lib.launch_gather_rows(*gargs) == 0, "launch_gather_rows failed")
-    ms = time_ms(lambda: lib.launch_gather_rows(*gargs), reps=50)
-    plain_ms = time_ms(lambda: hash_gather.gather_rows_plain(table, idx), reps=20)
-    library_ms = time_ms(lambda: torch.index_select(table, 0, idx), reps=20)
-    distinct = int(torch.unique(idx).numel())
-    # bytes these inputs need: each index once, each distinct row once (a
-    # 32-byte sector), each gathered row written once
-    nbytes = 4 * n + distinct * row_b + n * row_b
-    bound = nbytes / PEAK_BYTES * 1e3
-    log(f"gather_rows fine batch, {n} rows of {row_b} B ({distinct} distinct): kernel "
-        f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the bound's bytes), plain "
-        f"{plain_ms:.4f} ms, torch.index_select {library_ms:.4f} ms, bound {bound:.4f} ms "
-        f"(HBM; the 33.5 MB table fits the 50 MB L2, so repeated rows cost less than this)")
-    gather = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-              "library_ms": library_ms}
-
-    sidx, cot, n_rows = fine_s
-    width = cot.shape[1]
-    acc = torch.empty((n_rows, width), device=dev)
-    res = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
-    sargs = (sidx.data_ptr(), cot.data_ptr(), acc.data_ptr(), res.data_ptr(), n_rows, n, width,
-             int(cot.dtype == torch.bfloat16))
-    calls = {"new": lambda: lib.launch_scatter_add_rows(*sargs, stream),
-             "old": lambda: lib.launch_scatter_add_rows_atomic(*sargs, stream)}
-    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_scatter_add_rows failed")
-    turns = [time_ms(calls[k], reps=50) for k in ("new", "old", "old", "new")]
-    sms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    parts = [time_ms(lambda: lib.launch_scatter_add_rows_part(*sargs, i, stream), reps=50)
-             for i in range(3)]
-    splain_ms = time_ms(lambda: hash_gather.scatter_add_rows_plain(sidx, cot, n_rows), reps=20)
-    lib_buf = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
-    slib_ms = time_ms(lambda: lib_buf.zero_().index_add_(0, sidx, cot), reps=20)
-    # indices and cotangent rows read once, the gradient table written once
-    snbytes = 4 * n + n * width * cot.element_size() + n_rows * width * cot.element_size()
-    sbound = snbytes / PEAK_BYTES * 1e3
-    # this design's floor: also the float32 buffer zeroed, then read by the rounding
-    floor = (snbytes + 2 * n_rows * width * 4) / PEAK_BYTES * 1e3
-    runs = int(hash_gather.warp_runs(sidx)[2][:n].sum())
-    log(f"scatter_add_rows fine batch, {n} rows of {width} {cot.dtype} into {n_rows} "
-        f"({runs} runs in warps of 32 rows): kernel {sms:.4f} ms, previous (atomic) kernel "
-        f"{old_ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}); its launches alone: "
-        f"memset {parts[0]:.4f}, accumulation {parts[1]:.4f}, rounding {parts[2]:.4f} ms; plain "
-        f"{splain_ms:.4f} ms, index_add_ in bf16 {slib_ms:.4f} ms, bound {sbound:.4f} ms "
-        f"({sbound / sms:.3f} of it), this design's byte floor {floor:.4f} ms")
-    check(sms < old_ms, "the scatter-add is not faster than the previous (atomic) kernel")
-    scatter = {"ms": sms, "plain_ms": splain_ms, "bound_ms": sbound, "bound_by": "bytes",
-               "library_ms": slib_ms}
+    gather = gather_times("fine batch", *fine_g)
+    scatter = scatter_times("fine batch", *fine_s)
     return gather, scatter, step_ms
 
 
@@ -2986,6 +3037,309 @@ def ep_phase(dev, smi, params, kcfg, pts, dirs, dp):
             **step_times}
 
 
+# The breadth slice (phases 33-35): every encoder type of the factory at JAX's
+# defaults on a lego step's fine batch, the img_fit task through the CLIs,
+# the light-stage loader.
+ENC_POINTS = 196_608  # a lego step's fine batch
+ENC_CFGS = {"frequency": {"input_dim": 3, "freq": 10}, "sphere_harmonics": {}, "hashgrid": {},
+            "triplane": {}, "cuda_hashgrid_4d": {}, "cuda_hashgrid_latent": {},
+            "cuda_hashgrid_coef": {}, "cuda_motion2d": {}, "dnerf": {}, "dnerf_ngp_mlp": {},
+            "dnerf_ngp_tensorf": {}, "cuda_dnerf_ngp_tensorf": {}, "dnerf_mlp_tensorf": {}}
+ENC_NO_KERNEL = ("frequency", "sphere_harmonics", "triplane", "dnerf", "dnerf_mlp_tensorf")
+ENC_TIMED = {"cuda_hashgrid_4d": "corner, 2 bf16 (4 B) rows, D = 4",
+             "hashgrid": "corner, 2 bf16 (4 B) rows, D = 3"}
+# a float32 leaf's gradient through the kernels against the plain path: the
+# same products, but the latent codes' rows are added by index_put's atomics
+ENC_LEAF_REL = 1e-5
+IMG_FIT_EPOCHS, IMG_FIT_TIMED = 3, 50
+IMG_FIT_STEP_REL = 1e-5  # the card's step against the CPU's: float32 sums in other orders
+RIG, RIG_CAMS, RIG_FRAMES, RIG_RAYS = 1024, 4, 2, 1024
+
+
+def _encoder_inputs(etype, dev, gen):
+    """The fine batch for a type: xyz uniform in the bbox; t uniform over
+    frames 0-59 (xyzt types) or over [0, 1] (D-NeRF types); unit directions
+    for SH. The inputs require grad for the types without parameters."""
+    import torch
+    from nerf_tpu_torch.models import encoders
+
+    n = ENC_POINTS
+    xyz = torch.rand((n, 3), generator=gen, device=dev) * 4.0 - 2.0
+    if etype == "sphere_harmonics":
+        d = torch.randn((n, 3), generator=gen, device=dev)
+        return (d / d.norm(dim=-1, keepdim=True),)
+    if etype in encoders.DYNAMIC_HASH_TYPES:
+        return (torch.cat([xyz, torch.rand((n, 1), generator=gen, device=dev) * 59.0], -1),)
+    if etype in encoders.DNERF_TYPES:
+        return xyz, torch.rand((n, 1), generator=gen, device=dev)
+    return (xyz,)
+
+
+def encoder_phase(dev):
+    """Phase 33: every factory type at JAX's defaults, forward and backward
+    of sum(out^2) on the fine batch through the kernels and through the
+    plain path on the same tree: outputs equal, each table's gradient per
+    element within scatter_add_tolerance of the plain scatter-add of the
+    same cotangent rows, each float32 leaf within ENC_LEAF_REL of its
+    largest |value|; B4 and B4' launched once a table under every hash-based
+    type, never under the others; ms of each. Then B4 and B4' alone on the
+    rows of two types (ENC_TIMED). Returns ({label: (gather, scatter)},
+    {"gather": launches, "scatter": launches, "gather_err", "scatter_err"})."""
+    import torch
+    from nerf_tpu_torch.models import encoders, hashgrid
+    from nerf_tpu_torch.ops import hash_gather
+    from nerf_tpu_torch.tree import tree_leaves
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    table_of, seen, gathered = {}, [], []
+    real_gather, real_scatter = hashgrid.gather_rows_diff, hash_gather.scatter_add_rows
+
+    def gather_spy(table, idx, plain=False):
+        table_of[idx.data_ptr()] = table.data_ptr()
+        gathered.append((table, idx, plain))
+        return real_gather(table, idx, plain)
+
+    def scatter_spy(idx, cot, n_rows):
+        seen.append((idx, cot, n_rows))
+        return real_scatter(idx, cot, n_rows)
+
+    # the wrapper counts on its module-level name, which is the spy meanwhile
+    scatter_spy.launches = 0
+    hashgrid.gather_rows_diff, hash_gather.scatter_add_rows = gather_spy, scatter_spy
+    counters = (hash_gather.gather_rows, scatter_spy)
+    totals = {"gather": 0, "scatter": 0, "gather_err": 0.0, "scatter_err": 0.0}
+    timed = {}
+    try:
+        for etype, extra in ENC_CFGS.items():
+            built = encoders.get_encoder({"type": etype, **extra},
+                                         torch.Generator().manual_seed(0), device=dev)
+            params, fn, dim = built if len(built) == 3 else (None, *built)
+            args = _encoder_inputs(etype, dev, gen)
+            leaves = tree_leaves(params) if params is not None else []
+            wrt = leaves if leaves else [args[0]]
+            for t in wrt:
+                t.requires_grad_(True)
+
+            def run(plain):
+                for t in wrt:
+                    t.grad = None
+                seen.clear()
+                gathered.clear()
+                before = [c.launches for c in counters]
+                out = fn(params, *args, plain=plain) if params is not None else fn(*args)
+                (out * out).sum().backward()
+                torch.cuda.synchronize()
+                return (out.detach(), [t.grad.clone() for t in wrt],
+                        [c.launches - b for c, b in zip(counters, before)])
+
+            run(False)  # warm-up
+            times = {}
+            for mode in (False, True, True, False):
+                t0 = time.perf_counter()
+                out, grads, counts = run(mode)
+                times.setdefault(mode, []).append((time.perf_counter() - t0) * 1e3)
+                if mode:
+                    out_p, grads_p, counts_p = out, grads, counts
+                else:
+                    out_k, grads_k, counts_k, seen_k, gathered_k = (out, grads, counts,
+                                                                    list(seen), list(gathered))
+            n_tables = sum(1 for t in leaves if t.dtype == torch.bfloat16)
+            check(out_k.shape == (ENC_POINTS, dim) and bool(torch.isfinite(out_k).all()),
+                  f"{etype}: output {tuple(out_k.shape)}, dim {dim}")
+            check(torch.equal(out_k, out_p), f"{etype}: the kernels' output differs from the "
+                                             "plain path's")
+            if etype in ENC_NO_KERNEL:
+                check(counts_k == [0, 0] and n_tables == 0, f"{etype}: launches {counts_k}")
+            else:
+                check(n_tables > 0 and counts_k == [n_tables, n_tables] and counts_p == [0, 0],
+                      f"{etype}: B4/B4' launches {counts_k} through the kernels, {counts_p} "
+                      f"plain, for {n_tables} tables")
+            totals["gather"] += counts_k[0]
+            totals["scatter"] += counts_k[1]
+            ptrs = [t.data_ptr() for t in wrt]
+            worst = 0.0
+            for idx, cot, n_rows in seen_k:
+                i = ptrs.index(table_of[idx.data_ptr()])
+                want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
+                tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+                err = (grads_k[i].reshape(want.shape).double() - want.double()).abs()
+                worst = max(worst, float((err / tol.clamp_min(1e-30)).max()))
+                totals["scatter_err"] = max(totals["scatter_err"], float(err.max()))
+                check(bool((err <= tol).all()), f"{etype}: table leaf {i}'s gradient outside "
+                                                "scatter_add_tolerance")
+            leaf_rel = 0.0
+            for a, b, t in zip(grads_k, grads_p, wrt):
+                if t.dtype != torch.bfloat16:
+                    rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    leaf_rel = max(leaf_rel, rel)
+                    check(rel <= ENC_LEAF_REL, f"{etype}: a float32 leaf {rel:.3g} from plain")
+            rows = sum(idx.shape[0] for _, idx, _ in gathered_k)
+            log(f"encoder {etype} (dim {dim}, {len(leaves)} leaves, {n_tables} bf16 tables, "
+                f"{rows} gathered rows): fwd+bwd {min(times[False]):.3f} ms through the kernels, "
+                f"{min(times[True]):.3f} ms plain; output equal; tables' worst err / tolerance "
+                f"{worst:.3g}; float32 leaves {leaf_rel:.3g} of their largest; B4/B4' launches "
+                f"{counts_k}")
+            if etype in ENC_TIMED:
+                table, idx, _ = gathered_k[0]
+                sidx, cot, n_rows = seen_k[0]
+                timed[etype] = (gather_times(f"{etype} ({ENC_TIMED[etype]})", table.detach(), idx),
+                                scatter_times(f"{etype} ({ENC_TIMED[etype]})", sidx, cot, n_rows,
+                                              previous=False), idx.shape[0])
+            del built, params, args, leaves, wrt, out, grads, out_k, out_p, grads_k, grads_p
+            seen_k.clear()
+            gathered_k.clear()
+            torch.cuda.empty_cache()
+    finally:
+        hashgrid.gather_rows_diff, hash_gather.scatter_add_rows = real_gather, real_scatter
+    return timed, totals
+
+
+def img_fit_phase(root, work, scene_dir, dev):
+    """Phase 34: configs/img_fit/lego_view0.yaml on view 0 of phase 15's
+    scene (input_ratio 0.5: 400x400, 8192 pixels a step): train
+    IMG_FIT_EPOCHS epochs through ``python -m nerf_tpu_torch.train``'s main,
+    evaluate through ``run --type evaluate``; the loss finite and falling,
+    metrics.json and gt_pred.png written, the checkpoint loaded back, no
+    kernel launched; one step on the card against the same step on the CPU
+    (TF32 allowed in the process); IMG_FIT_TIMED warm steps timed."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch import run
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.data.img_fit import make_img_fit_dataset
+    from nerf_tpu_torch.models.img_fit import apply_img_fit_mlp
+    from nerf_tpu_torch.train import __main__ as train_main
+    from nerf_tpu_torch.train import checkpoint, img_fit_loop
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.tree import tree_leaves, tree_map
+    from nerf_tpu_torch.utils.png import read_png
+
+    cfg_file = os.path.join(root, "configs/img_fit/lego_view0.yaml")
+    opts = ["train_dataset.data_root", scene_dir, "test_dataset.data_root", scene_dir,
+            "train.epoch", str(IMG_FIT_EPOCHS), "workspace", os.path.join(work, "img_fit")]
+    cfg = make_cfg(cfg_file, opts)
+    before = train_main.launches()
+    _, text, train_s = _run_cli(train_main.main, ["--cfg_file", cfg_file] + opts)
+    losses = [float(m) for m in re.findall(r"loss: (\S+)", text)]
+    check(len(losses) == IMG_FIT_EPOCHS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0], f"img_fit losses {losses}")
+    psnr, _, eval_s = _run_cli(run.main, ["--type", "evaluate", "--cfg_file", cfg_file] + opts)
+    with open(os.path.join(cfg.result_dir, "metrics.json")) as f:
+        check(json.load(f)["psnr"] == psnr, "metrics.json's PSNR")
+    ds = make_img_fit_dataset(cfg)
+    png = read_png(os.path.join(cfg.result_dir, "gt_pred.png"))
+    check(png.shape == (ds.H, 2 * ds.W, 3), f"gt_pred.png {png.shape}")
+    launched = {k: v - before[k] for k, v in train_main.launches().items() if v != before[k]}
+    check(not launched, f"img_fit launched kernels: {launched}")
+    ckpt = checkpoint.load_checkpoint(cfg.trained_model_dir, img_fit_loop.template_state(cfg, dev))
+    check(ckpt is not None and ckpt[1] == IMG_FIT_EPOCHS - 1
+          and ckpt[0].step == IMG_FIT_EPOCHS * int(cfg.ep_iter), "the img_fit checkpoint")
+    state = ckpt[0]
+
+    # one step's loss and gradients on the card and on the CPU, same pixels
+    idx = torch.randint(0, ds.uv.shape[0], (ds.n_pixels,), generator=torch.Generator()
+                        .manual_seed(1))
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        steps = []
+        for d in (dev, torch.device("cpu")):
+            p = tree_map(lambda t: t.detach().to(d).requires_grad_(True), state.params)
+            loss = torch.mean((apply_img_fit_mlp(p, torch.from_numpy(ds.uv[idx.numpy()]).to(d))
+                               - torch.from_numpy(ds.rgb[idx.numpy()]).to(d)) ** 2)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            steps.append((float(loss.detach()), [g.cpu() for g in grads]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    loss_rel = abs(steps[0][0] - steps[1][0]) / steps[1][0]
+    grad_rel = max(float((a - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(steps[0][1], steps[1][1]))
+    check(loss_rel <= IMG_FIT_STEP_REL and grad_rel <= IMG_FIT_STEP_REL,
+          f"img_fit step on the card vs the CPU: loss {loss_rel:.3g}, gradients {grad_rel:.3g}")
+
+    uv, rgb = torch.from_numpy(ds.uv).to(dev), torch.from_numpy(ds.rgb).to(dev)
+    tx, gen = make_optimizer(cfg), torch.Generator(device=dev).manual_seed(2)
+    for _ in range(5):
+        img_fit_loop.img_fit_step(state, uv, rgb, tx, 10, ds.n_pixels, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(IMG_FIT_TIMED):
+        img_fit_loop.img_fit_step(state, uv, rgb, tx, 10, ds.n_pixels, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / IMG_FIT_TIMED
+    log(f"img_fit ({ds.H}x{ds.W}, {ds.n_pixels} pixels a step): {IMG_FIT_EPOCHS} epochs of "
+        f"{cfg.ep_iter} steps in {train_s:.2f} s, losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"evaluate PSNR {psnr:.4f} dB in {eval_s:.2f} s; {step_ms:.3f} ms a warm step "
+        f"({IMG_FIT_TIMED} steps to a synchronize); no kernel launched; one step on the card "
+        f"vs the CPU (TF32 allowed): loss {loss_rel:.3g}, gradients {grad_rel:.3g} of their "
+        f"largest")
+    return {"psnr": psnr, "step_ms": step_ms, "losses": losses}
+
+
+def light_stage_phase(work):
+    """Phase 35: a rig of RIG_CAMS cameras x RIG_FRAMES frames at RIG x RIG
+    with distortion (light_stage.write_synthetic_rig) through the
+    light-stage loader at ratios 1.0 and 0.5: every train batch of RIG_RAYS
+    rays and a test image; rays finite and of unit direction, an rgb row a
+    ray; the host ms of a first read (decode, undistort, resize) and of a
+    batch."""
+    import importlib.util
+
+    import numpy as np
+    from nerf_tpu_torch.data import light_stage
+
+    root = os.path.join(work, "rig")
+    t0 = time.perf_counter()
+    light_stage.write_synthetic_rig(root, n_cams=RIG_CAMS, n_frames=RIG_FRAMES, H=RIG, W=RIG,
+                                    seed=11)
+    write_s = time.perf_counter() - t0
+    out = {}
+    for ratio in (1.0, 0.5):
+        ds = light_stage.LightStageDataset(root, split="train", n_rays=RIG_RAYS,
+                                           input_ratio=ratio)
+        first, again = [], []
+        for pass_times in (first, again):
+            for i in range(len(ds)):
+                t0 = time.perf_counter()
+                b = ds[i]
+                pass_times.append((time.perf_counter() - t0) * 1e3)
+                rays = b["rays"]
+                check(0.75 * RIG_RAYS < rays.shape[0] <= RIG_RAYS
+                      and b["rgb"].shape == (rays.shape[0], 3) and bool(np.isfinite(rays).all())
+                      and bool(np.abs(np.linalg.norm(rays[:, 3:6], axis=-1) - 1).max() < 1e-5),
+                      f"light stage batch {i} at ratio {ratio}")
+        t0 = time.perf_counter()
+        test = light_stage.LightStageDataset(root, split="test", input_ratio=ratio)[0]
+        test_ms = (time.perf_counter() - t0) * 1e3
+        side = int(round(RIG * ratio))
+        check(test["rays"].shape == (side * side, 7) and test["rgb"].shape == (side * side, 3)
+              and bool(np.isfinite(test["rays"]).all())
+              and bool(np.abs(np.linalg.norm(test["rays"][:, 3:6], axis=-1) - 1).max() < 1e-5),
+              f"light stage test image at ratio {ratio}")
+        out[ratio] = {"read_ms": float(np.median(first)), "batch_ms": float(np.median(again)),
+                      "test_ms": test_ms}
+        log(f"light stage at ratio {ratio}: {len(ds)} items of {RIG}x{RIG}; a first read "
+            f"(PNG decode, undistortion, resize) and batch {np.median(first):.1f} ms (median; "
+            f"{min(first):.1f}-{max(first):.1f}), a batch of {RIG_RAYS} rays from the cache "
+            f"{np.median(again):.2f} ms; a test image ({side}x{side} rays) {test_ms:.1f} ms")
+    have = {m: importlib.util.find_spec(m) is not None for m in ("cv2", "imageio", "PIL")}
+    log(f"rig written in {write_s:.2f} s; on this machine "
+        + ", ".join(f"{m} {'present' if v else 'absent'}" for m, v in have.items()))
+    if have["cv2"]:  # where cv2 is installed, hold the port's undistortion to it
+        import cv2
+        from nerf_tpu_torch.utils import remap
+        from nerf_tpu_torch.utils.png import read_png
+
+        ds = light_stage.LightStageDataset(root, split="test")
+        K, D = np.asarray(ds.cams["K"][0], np.float64), np.asarray(ds.cams["D"][0], np.float64)
+        img = read_png(ds.items[0]["img_path"]).astype(np.float32) / 255.0
+        msk = (read_png(ds._mask_path(ds.items[0]["img_path"])) != 0).astype(np.uint8)
+        same = [bool((remap.undistort(a, K, D) == cv2.undistort(a, K, D)).all()) for a in (img, msk)]
+        check(all(same), f"remap.undistort differs from cv2 {cv2.__version__}: {same}")
+        log(f"remap.undistort equal to cv2 {cv2.__version__}'s on a {RIG}x{RIG} image and mask")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3194,11 +3548,35 @@ def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
         + f"KiloNeRF training {ktrain['step_ms']:.2f} ms a step ({ktrain['rays_per_s']:.0f} "
         f"rays/s); EP tile {ep['ep_ms']:.3f} ms vs dense {ep['dense_ms']:.3f} ms "
         f"({ep['points']} points); bench_scaling world 1 {ep['scaling']:.1f} rays/s")
-    log("phase 33: done")
+    log("phase 33: every encoder type at JAX's defaults on the fine batch, through the "
+        "kernels and plain")
+    timed, enc = encoder_phase(dev)
+    for name, i, err in (("hash_gather_rows", 0, "gather_err"),
+                         ("hash_scatter_add_rows", 1, "scatter_err")):
+        kern = next(k for k in kernels if k["name"] == name)
+        kern["max_abs_err"] = max(kern["max_abs_err"], enc[err])
+        kern["encoder_launches"] = enc["gather" if i == 0 else "scatter"]
+        kern["encoder_shapes"] = [{"shape": f"{etype}: {ENC_TIMED[etype]}", "rows": rows,
+                                   **times[i]} for etype, (*times, rows) in timed.items()]
+    log("phase 34: img_fit through the trainer and run --type evaluate")
+    img_fit = img_fit_phase(root, work, scene_dir, dev)
+    log("phase 35: the light-stage loader")
+    rig = light_stage_phase(work)
+    g4, s4 = timed["cuda_hashgrid_4d"][:2]
+    log(f"breadth slice on {smi}: B4 on the 4-D corner rows {g4['ms']:.4f} ms (bound "
+        f"{g4['bound_ms']:.4f}, index_select {g4['library_ms']:.4f}), B4' {s4['ms']:.4f} ms "
+        f"(bound {s4['bound_ms']:.4f}, index_add_ {s4['library_ms']:.4f}); under the encoder "
+        f"phase B4 {enc['gather']} and B4' {enc['scatter']} launches; img_fit "
+        f"{img_fit['step_ms']:.3f} ms a step, PSNR {img_fit['psnr']:.4f} dB after "
+        f"{IMG_FIT_EPOCHS} epochs; light stage {rig[1.0]['read_ms']:.1f} ms a first read at "
+        f"{RIG}x{RIG}, {rig[1.0]['batch_ms']:.2f} ms a batch")
+    log("phase 36: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms"]
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "encoder_launches",
+             "encoder_shapes"]
     print(smi, flush=True)
-    print(json.dumps({"kernels": [{k: kern[k] for k in order} for kern in kernels]}), flush=True)
+    print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
+                                  for kern in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -41,11 +41,17 @@ def to_rgb(img: np.ndarray, H: int, W: int, white_bkgd: bool) -> np.ndarray:
     if img.shape[-1] == 1:
         img = np.repeat(img, 3, axis=-1)
     if img.shape[:2] != (H, W):
-        t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-        t = F.interpolate(t, size=(H, W), mode="bilinear", align_corners=False,
-                          antialias=False)
-        img = t[0].permute(1, 2, 0).numpy()
+        img = resize_bilinear(img, H, W)
     return np.ascontiguousarray(img, np.float32)
+
+
+def resize_bilinear(img: np.ndarray, H: int, W: int) -> np.ndarray:
+    """[h, w, C] float32 -> [H, W, C]: bilinear, half-pixel centres, edges
+    clamped, no antialias (cv2's INTER_LINEAR; at ratio 0.5 the mean of each
+    2x2 block, as cv2's INTER_AREA that it switches to there)."""
+    t = torch.from_numpy(np.ascontiguousarray(img, np.float32)).permute(2, 0, 1)[None]
+    t = F.interpolate(t, size=(H, W), mode="bilinear", align_corners=False, antialias=False)
+    return t[0].permute(1, 2, 0).numpy()
 
 
 class BlenderDataset:

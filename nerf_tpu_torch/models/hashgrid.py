@@ -17,6 +17,7 @@ at the finest levels).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Dict, Optional, Tuple
 
@@ -124,7 +125,10 @@ def hashgrid_encode(params: Dict[str, torch.Tensor], pts: torch.Tensor, resoluti
     feats = rows.reshape(L, n, 1 << D, F)  # [L, N, 2^D, F], corners in product order
     offs = torch.as_tensor(list(itertools.product((0, 1), repeat=D)), device=pts.device)
     w = torch.where(offs == 1, frac[:, :, None, :], 1.0 - frac[:, :, None, :])
-    w = torch.prod(w, dim=-1, keepdim=True)  # [L, N, 2^D, 1]
+    # the product over D as D - 1 multiplies: torch.prod's backward takes a
+    # slow path over the whole tensor when any factor is 0 (a point on a
+    # cell face), which the gradient with respect to the points meets
+    w = functools.reduce(torch.mul, [w[..., d:d + 1] for d in range(D)])  # [L, N, 2^D, 1]
     out = torch.sum(feats.float() * w, dim=2)  # [L, N, F]
     return out.permute(1, 0, 2).reshape(n, L * F)
 

@@ -33,6 +33,17 @@ def _linear(fan_in: int, fan_out: int, generator: Optional[torch.Generator]) -> 
     return layer
 
 
+def linear_init(generator: Optional[torch.Generator], fan_in: int, fan_out: int,
+                device=None) -> Dict[str, torch.Tensor]:
+    """The counterpart of ``nerf_tpu``'s ``_linear_init``: {"w": [in, out],
+    "b": [out]} float32, both U(-1/sqrt(fan_in), 1/sqrt(fan_in)), w drawn
+    first, from ``generator``, on ``device``."""
+    bound = 1.0 / fan_in ** 0.5
+    w = torch.empty(fan_in, fan_out).uniform_(-bound, bound, generator=generator)
+    b = torch.empty(fan_out).uniform_(-bound, bound, generator=generator)
+    return {"w": w.to(device), "b": b.to(device)}
+
+
 def dense(h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
           compute_dtype: torch.dtype) -> torch.Tensor:
     """``h @ weight.T + bias`` with operands rounded to ``compute_dtype`` and

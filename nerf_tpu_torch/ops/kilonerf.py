@@ -28,12 +28,12 @@ is JAX's [G, C] layout itself, which the expert-parallel exchange
 """
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from ..models.encoders import freq_encode, freq_out_dim
+from .precision import full_float32, matmul_precision  # noqa: F401 (tests and chip_smoke.py read both here)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 LAYERS = ("l1", "l2", "l3", "l4", "l5")
@@ -125,34 +125,6 @@ def round_window(ids: torch.Tensor, rank: torch.Tensor, counts: torch.Tensor, ma
     slot_of[active] = torch.arange(active.shape[0], device=ids.device)
     sel = torch.nonzero((rank >= lo) & (rank < lo + capacity)).squeeze(1)
     return active, sel, slot_of[ids[sel]] * cr + (rank[sel] - lo), cr
-
-
-@contextlib.contextmanager
-def matmul_precision(tf32: bool):
-    """float32 products on CUDA with TF32 (``tf32``) or in full float32
-    inside the block, whatever the caller set; the setting is put back as it
-    was, read and written through one API (``fp32_precision`` where torch
-    has it, whose "none" means: inherit the process-wide precision)."""
-    mm = torch.backends.cuda.matmul
-    if hasattr(mm, "fp32_precision"):
-        prev = mm.fp32_precision
-        mm.fp32_precision = "tf32" if tf32 else "ieee"
-        try:
-            yield
-        finally:
-            mm.fp32_precision = prev
-    else:
-        prev = torch.get_float32_matmul_precision()
-        torch.set_float32_matmul_precision("high" if tf32 else "highest")
-        try:
-            yield
-        finally:
-            torch.set_float32_matmul_precision(prev)
-
-
-def full_float32():
-    """The grouped products' precision: full float32 (no TF32)."""
-    return matmul_precision(False)
 
 
 class _GroupedLinear(torch.autograd.Function):

@@ -10,7 +10,9 @@
   renderer: seconds a frame, rays/s and PSNR of each.
 - ``evaluate``: every test view through the evaluator (MSE, PSNR, SSIM,
   images, metrics JSON and summary), fps, and with ``write_video`` the
-  spiral (or original) path's frames and videos. ``ess_compaction: auto``
+  spiral (or original) path's frames and videos; for the img_fit task
+  (``task: img_fit``) the fitted view's PSNR, ``metrics.json`` and
+  ``gt_pred.png``. ``ess_compaction: auto``
   is calibrated on the middle 4,096 rays of view 0.
 
 The model comes from ``trained_model_dir`` (a missing checkpoint raises;
@@ -151,7 +153,12 @@ def run_marched(cfg, device=None) -> Dict[str, Dict[str, float]]:
 
 
 def run_evaluate(cfg, device=None) -> Optional[Dict[str, float]]:
-    """Every test view through the evaluator, fps, and the video path."""
+    """Every test view through the evaluator, fps, and the video path. The
+    img_fit task: its view's PSNR (``eval_img_fit``)."""
+    if cfg.task == "img_fit":
+        from .train.img_fit_loop import eval_img_fit
+
+        return eval_img_fit(cfg, device=device)
     dev = resolve_device(device)
     opts, params, grid = load_eval_model(cfg, dev)
     ds = make_dataset(cfg, "test")

@@ -13,8 +13,12 @@ is not a rank already (no ``WORLD_SIZE``), it starts N ranks of itself with
 ``distributed True`` and waits for them; under torchrun (``distributed
 True``) it is one rank of the launcher's world.
 ``--test`` evaluates the checkpoint in ``trained_model_dir`` instead
-(``run.run_evaluate``). The img_fit task is not ported. The last line a
-training prints (rank 0's) is its kernel launches, as ``run``'s frames'.
+(``run.run_evaluate``). The last line a nerf training prints (rank 0's) is
+its kernel launches, as ``run``'s frames'.
+
+The img_fit task (``task: img_fit``, ``configs/img_fit/lego_view0.yaml``)
+trains through ``train.img_fit_loop.train_img_fit`` on one device, as the
+top-level ``train.py`` dispatches it; ``--test`` evaluates it.
 """
 from __future__ import annotations
 
@@ -59,12 +63,16 @@ def launches() -> dict:
 
 def main(argv=None):
     cfg, args = parse_args(argv)
-    if cfg.task != "nerf":
+    if cfg.task not in ("nerf", "img_fit"):
         raise NotImplementedError(f"task {cfg.task!r} is not ported")
     if args.test:
         from ..run import run_evaluate
 
         return run_evaluate(cfg, device=args.device)
+    if cfg.task == "img_fit":
+        from .img_fit_loop import train_img_fit
+
+        return train_img_fit(cfg, device=args.device)
     if "WORLD_SIZE" not in os.environ:
         dev = resolve_device(args.device)
         world = trainer_world(cfg, dev)

@@ -82,6 +82,16 @@ Tolerances (as chip_smoke.py states them):
   kilonerf_eval_ep equal bit for bit to kilonerf_eval; a KiloNeRF train step
   through B3 against B3's plain version: loss within 1e-4 relative, every
   gradient leaf within 1e-4 of its largest |value|.
+- the encoder factory's hash-based types (corner tables of 2 bf16, D = 2,
+  3 and 4): forward through B4 equal to the plain gather's; each table's
+  gradient through B4' per element within ``scatter_add_tolerance`` of the
+  plain version on the same cotangent rows; every float32 leaf within 1e-5
+  of its largest |value| (the same products; index_put's atomics may add
+  the latent codes' rows in another order); B4 and B4' counted on the
+  kernel path only. One img_fit step on the card against the same step on
+  the CPU from the same state and pixels, with TF32 allowed in the process:
+  loss within 1e-5 relative, every gradient leaf within 1e-5 of its largest
+  |value| (its products run in full float32 whatever the setting).
 """
 import dataclasses
 import math
@@ -1102,3 +1112,113 @@ def test_kilonerf_train_step_through_b3_matches_plain(cuda, monkeypatch):
     assert len(gk) == 20
     for a, b in zip(gk, gp):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+HASH_ENCODERS = ["hashgrid", "cuda_hashgrid_4d", "cuda_hashgrid_latent", "cuda_hashgrid_coef",
+                 "cuda_motion2d", "dnerf_ngp_mlp", "dnerf_ngp_tensorf", "cuda_dnerf_ngp_tensorf"]
+
+
+def _encoder_args(etype, n, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand((n, 3), generator=g, device=dev) * 4.0 - 2.0
+    if etype.startswith("cuda_hashgrid") or etype == "cuda_motion2d":
+        t = torch.randint(0, 60, (n, 1), generator=g, device=dev).float()
+        return (torch.cat([xyz, t], -1),)
+    if etype.startswith(("dnerf", "cuda_dnerf")):
+        t = torch.rand((n, 1), generator=g, device=dev)
+        t[::4] = 0.0
+        return xyz, t
+    return (xyz,)
+
+
+def _encode_grads(fn, params, args, plain, g):
+    from nerf_tpu_torch.tree import tree_leaves
+
+    leaves = tree_leaves(params)
+    for leaf in leaves:
+        leaf.grad = None
+        leaf.requires_grad_(True)
+    out = fn(params, *args, plain=plain)
+    (out * g).sum().backward()
+    return out.detach(), [leaf.grad.clone() for leaf in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("etype", HASH_ENCODERS)
+def test_hash_encoders_through_b4_match_plain(cuda, etype, monkeypatch):
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.models.encoders import get_encoder
+    from nerf_tpu_torch.tree import tree_leaves
+
+    cfg = {"type": etype, "log2_hashmap_size": 16, "deform_width": 64, "coef_hidden": 32,
+           "basis_num": 3}
+    params, fn, dim = get_encoder(cfg, torch.Generator().manual_seed(0), device=cuda)
+    leaves = tree_leaves(params)
+    with torch.no_grad():  # O(1) tables and a moving deformation head
+        for leaf in leaves:
+            if leaf.dtype == torch.bfloat16:
+                leaf.uniform_(-1, 1)
+        if "deform" in params:
+            params["deform"]["head"]["w"].uniform_(-0.1, 0.1)
+    args = _encoder_args(etype, 20000, cuda, 1)
+    g = torch.randn((20000, dim), device=cuda, generator=torch.Generator(device=cuda).manual_seed(2))
+    table_of, seen = {}, []
+    real_gather, real_scatter = hashgrid.gather_rows_diff, hash_gather.scatter_add_rows
+
+    def gather(table, idx, plain=False):
+        table_of[idx.data_ptr()] = table.data_ptr()
+        return real_gather(table, idx, plain)
+
+    def scatter(idx, cot, n_rows):
+        seen.append((idx, cot, n_rows))
+        return real_scatter(idx, cot, n_rows)
+
+    scatter.launches = 0
+    monkeypatch.setattr(hashgrid, "gather_rows_diff", gather)
+    monkeypatch.setattr(hash_gather, "scatter_add_rows", scatter)
+    n_tables = sum(1 for t in leaves if t.dtype == torch.bfloat16)
+    b4 = hash_gather.gather_rows.launches
+    out_k, grads_k = _encode_grads(fn, params, args, False, g)
+    assert hash_gather.gather_rows.launches - b4 == n_tables == len(seen)
+    b4 = hash_gather.gather_rows.launches
+    out_p, grads_p = _encode_grads(fn, params, args, True, g)
+    assert hash_gather.gather_rows.launches == b4 and len(seen) == n_tables
+    assert torch.equal(out_k, out_p)
+    ptrs = [t.data_ptr() for t in leaves]
+    for idx, cot, n_rows in seen:
+        i = ptrs.index(table_of[idx.data_ptr()])
+        want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
+        tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+        for got in (grads_k[i], grads_p[i]):
+            assert bool(((got.reshape(want.shape).double() - want.double()).abs() <= tol).all())
+    for a, b, t in zip(grads_k, grads_p, leaves):
+        if t.dtype != torch.bfloat16:
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-12
+
+
+@pytest.mark.cuda
+def test_img_fit_step_on_the_card_matches_the_cpu(cuda):
+    from nerf_tpu_torch.models.img_fit import apply_img_fit_mlp, init_img_fit_mlp
+    from nerf_tpu_torch.tree import tree_leaves
+
+    params = init_img_fit_mlp(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    uv = torch.from_numpy(rng.uniform(0, 1, (8192, 2)).astype(np.float32))
+    rgb = torch.from_numpy(rng.uniform(0, 1, (8192, 3)).astype(np.float32))
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        results = []
+        for dev in (cuda, torch.device("cpu")):
+            p = {k: ([{n: t.to(dev).requires_grad_(True) for n, t in d.items()} for d in v]
+                     if isinstance(v, list) else {n: t.to(dev).requires_grad_(True)
+                                                  for n, t in v.items()})
+                 for k, v in params.items()}
+            loss = torch.mean((apply_img_fit_mlp(p, uv.to(dev)) - rgb.to(dev)) ** 2)
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            results.append((float(loss.detach()), [x.cpu() for x in grads]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert results[0][0] == pytest.approx(results[1][0], rel=1e-5)
+    for a, b in zip(results[0][1], results[1][1]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-12

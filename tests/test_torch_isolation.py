@@ -91,6 +91,40 @@ def test_the_parallel_slice_is_scanned(path):
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
 
 
+# the breadth slice's modules (encoders, dynamic models, img_fit, losses,
+# light stage): each is found by the scan above
+BREADTH_SLICE = ["nerf_tpu_torch/models/encoders.py", "nerf_tpu_torch/models/triplane.py",
+                 "nerf_tpu_torch/models/dnerf.py", "nerf_tpu_torch/models/hash_variants.py",
+                 "nerf_tpu_torch/models/img_fit.py", "nerf_tpu_torch/data/img_fit.py",
+                 "nerf_tpu_torch/data/latent.py", "nerf_tpu_torch/data/light_stage.py",
+                 "nerf_tpu_torch/train/img_fit_loop.py", "nerf_tpu_torch/train/losses.py",
+                 "nerf_tpu_torch/utils/vis_utils.py", "nerf_tpu_torch/utils/remap.py",
+                 "nerf_tpu_torch/ops/precision.py"]
+
+
+@pytest.mark.parametrize("path", BREADTH_SLICE)
+def test_the_breadth_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
+# image libraries: installed here, partly on the card's machine (cv2 and PIL,
+# not imageio); a module that tried one would run another path where it is
+# missing, so the data and model modules use the port's own codec and remap
+IMAGE_LIBS = ("cv2", "imageio", "PIL")
+IMAGE_FREE = sorted(f for f in FILES if f.startswith(("nerf_tpu_torch/data/",
+                                                      "nerf_tpu_torch/models/"))) + [
+    "nerf_tpu_torch/train/img_fit_loop.py", "nerf_tpu_torch/utils/remap.py",
+    "nerf_tpu_torch/utils/vis_utils.py", "nerf_tpu_torch/utils/png.py"]
+
+
+@pytest.mark.parametrize("path", IMAGE_FREE)
+def test_data_and_model_modules_import_no_image_library(path):
+    assert "nerf_tpu_torch/data/light_stage.py" in IMAGE_FREE
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in IMAGE_LIBS]
+    assert not bad, f"{path} imports {bad}"
+
+
 CSRC = sorted(f for f in os.listdir(os.path.join(ROOT, "nerf_tpu_torch", "csrc"))
               if f.endswith((".cu", ".cuh")))
 
