@@ -229,7 +229,38 @@ Phases, each printed with its elapsed seconds:
      distortion) through the loader at ratios 1.0 and 0.5 on this machine,
      which has no cv2: train batches of 1024 rays and a test image, rays
      finite and of unit direction, an rgb row a ray; host ms of a first
-     read and of a batch.
+     read and of a batch;
+ 36. configs/nerf/lego_400_coarse.yaml (N_importance 0) trained COARSE_STEPS
+     steps from a fresh init on 100 synthetic 400x400 images through the
+     trainer's entry point, then served at 200x200: one B1, B2 and B3 launch
+     a step and one B1 and B3 a render tile (no fine pass), the fine MLP's
+     Adam moments all zero;
+ 37. configs/nerf/lego_hashgrid.yaml (the corner layout) trained
+     CORNER_STEPS steps from a fresh init on the synthetic scene, then
+     served; one step's gathers (exact) and scatter-adds against their plain
+     versions and the whole step against the plain path (phase 13's gate);
+     B4 and B4' on its fine batch (CORNER_ROWS rows of 4 bytes) beside their
+     bounds and library calls ("corner_nerf" in the kernels line); ms a
+     step and a request beside the cellpack model's (phases 12, 14);
+ 38. each of the 7 other nerf_synthetic scene yamls trained SCENE_STEPS
+     steps at full width from a fresh init on a 2-frame 800x800 scene
+     written under its own name;
+ 39. the native image loader: built from nerf_tpu_torch/native/loader.cpp
+     with g++ where libpng's and libjpeg's headers are installed, else the
+     reason recorded and the PNG path run (one warning); phase 15's test
+     split through the Blender loader; a JPEG written by cv2 decoded within
+     1 of 255 of cv2's, or, without the library, refused with its name;
+ 40. python -m nerf_tpu_torch.extract_mesh on the committed lego model at
+     MESH_RES^3 (the lattice through B1, its launches counted), the lattice
+     alone timed; at MESH_CHECK_RES^3 the kernel's densities and mesh
+     against the plain path's;
+ 41. the committed lego weights as a reference-format .pth, ported by
+     python -m nerf_tpu_torch.port_torch_checkpoint and served over HTTP:
+     the frame at the warm-up pose equal to phase 4's bit for bit;
+ 42. a COLMAP model of phase 15's train views through python -m
+     nerf_tpu_torch.colmap2nerf (poses within 1e-6 of the views' own after
+     its recentring and scaling), read by the Blender loader, and
+     COLMAP_STEPS train steps on it from a fresh init.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -3340,6 +3371,449 @@ def light_stage_phase(work):
     return out
 
 
+# The thirteenth slice (phases 36-42): the shipped configs other than lego
+# (lego_400_coarse, the corner-layout hash grid, the 7 other scenes), the
+# native image loader, mesh extraction, reference checkpoints, COLMAP.
+COARSE_STEPS, COARSE_N_TIMED = 20, 8  # lego_400_coarse: steps from a fresh init; requests
+CORNER_STEPS = 50  # lego_hashgrid (corner layout): steps from a fresh init
+CORNER_ROWS = 25_165_824  # its fine batch: 1024 rays x 192 samples x 16 levels x 8 corners
+OTHER_SCENES = ("chair", "drums", "ficus", "hotdog", "materials", "mic", "ship")
+SCENE_STEPS = 3  # steps a scene yaml, on a 2-frame 800x800 scene
+MESH_RES, MESH_CHECK_RES, MESH_LEVEL = 256, 64, 5.0
+COLMAP_STEPS = 5
+
+
+def _fresh_train(cfg_file, work, tag, steps, counters, extra=()):
+    """Train ``cfg_file`` from a fresh init through the trainer's entry point
+    for ``steps`` steps of one epoch (then an ESS rebuild and the
+    checkpoint); the counters are zeroed before and read after. Returns
+    (cfg, state, grid, launches, log, seconds)."""
+    from nerf_tpu_torch.config import make_cfg
+
+    opts = ["train.epoch", "1", "ep_iter", str(steps), "grid_rebuild_ep", "1",
+            "save_latest_ep", "1", "trained_model_dir", os.path.join(work, f"{tag}_model"),
+            "record_dir", os.path.join(work, f"{tag}_record"), *extra]
+    state, grid, launches, text, secs = _drive_trainer(cfg_file, opts, counters)
+    losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
+    check(losses and all(math.isfinite(v) for v in losses), f"{tag}: logged losses {losses}")
+    check(state.step == steps, f"{tag}: {state.step} steps, expected {steps}")
+    check(os.path.exists(os.path.join(work, f"{tag}_model", "latest.npz")),
+          f"{tag}: no checkpoint written")
+    return make_cfg(cfg_file, opts), state, grid, launches, text, secs
+
+
+def _request_launches(service, counters):
+    """The counters' launches in one render of the warm-up pose."""
+    import torch
+
+    for c in counters.values():
+        c.launches = 0
+    service.render(THETA0, PHI, RADIUS)
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}
+
+
+def coarse400_phase(root, work, dev):
+    """Phase 36: configs/nerf/lego_400_coarse.yaml (N_importance 0) trained
+    COARSE_STEPS steps from a fresh init on 100 synthetic 400x400 images
+    (the config's input_ratio 0.5 of 800), then served at SIZE x SIZE. No
+    fine pass: one B1, one B2 and one B3 launch a step, one B1 and one B3 a
+    render tile, and the fine MLP's Adam moments still all zero."""
+    import torch
+    from nerf_tpu_torch.ops import fused_mlp, integrate
+    from nerf_tpu_torch.tree import tree_leaves
+
+    cfg_file = os.path.join(root, "configs/nerf/lego_400_coarse.yaml")
+    cfg, state, _, launches, text, secs = _fresh_train(
+        cfg_file, work, "coarse400", COARSE_STEPS, _counters(),
+        ["train_dataset_module", "synthetic", "train_dataset.n_images", "100",
+         "train_dataset.H", "400", "train_dataset.W", "400"])
+    log(f"lego_400_coarse: {COARSE_STEPS} steps from a fresh init in {secs:.2f} s (data, init, "
+        f"steps, ESS rebuild, checkpoint); launches {launches}")
+    check(int(cfg.task_arg.N_importance) == 0, "lego_400_coarse has a fine pass")
+    check(launches["fused_nerf_bwd"] == COARSE_STEPS and launches["integrate"] == COARSE_STEPS
+          and launches["fused_nerf_eval"] > COARSE_STEPS,
+          f"lego_400_coarse: launches {launches}, expected one B2 and one B3 a step "
+          f"(a fine pass would double them)")
+    n_coarse = len(tree_leaves(state.params["coarse"]))
+    fine_moments = state.opt_state.mu[n_coarse:] + state.opt_state.nu[n_coarse:]
+    check(all(not bool(m.any()) for m in fine_moments),
+          "lego_400_coarse: a gradient reached the fine MLP")
+    rate = re.search(r"done in (\S+)s  \((\S+) train rays/s\)", text)
+    counters = {"fused_nerf_eval": fused_mlp.fused_nerf_eval, "integrate": integrate.integrate}
+    service, _, serve_launches, request_ms = serve_phase(dev, cfg, counters, COARSE_N_TIMED)
+    per_request = _request_launches(service, counters)
+    tiles = -(-SIZE * SIZE // service.opts.tile_rays)
+    check(per_request == {"fused_nerf_eval": tiles, "integrate": tiles},
+          f"lego_400_coarse request launches {per_request}, expected {tiles} each (no fine pass)")
+    log(f"lego_400_coarse: the fine MLP's {len(fine_moments)} Adam moments all zero; epoch "
+        f"{float(rate.group(1)) * 1e3 / COARSE_STEPS:.2f} ms a step (first steps included), "
+        f"{rate.group(2)} train rays/s; {request_ms:.2f} ms a {SIZE}x{SIZE} request, "
+        f"launches a request {per_request} ({tiles} tiles, coarse only)")
+    del service
+    torch.cuda.empty_cache()
+    return {"request_ms": request_ms, "launches": launches}
+
+
+def corner_phase(root, work, dev, cellpack):
+    """Phase 37: configs/nerf/lego_hashgrid.yaml (the corner layout: 2 bf16,
+    4-byte rows, 8 corners a level) trained CORNER_STEPS steps from a fresh
+    init on the synthetic scene, served at SIZE x SIZE; one step's gathers
+    and scatter-adds against their plain versions and the whole step
+    against the plain path (phase 13's gate); B4 and B4' on the step's fine
+    batch (CORNER_ROWS rows) beside their bounds and library calls; a window
+    of warm steps. ``cellpack``: phase 12/14's step and request ms."""
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.ops import hash_gather
+    from nerf_tpu_torch.render.renderer import RenderOptions
+    from nerf_tpu_torch.train.optim import make_optimizer
+    from nerf_tpu_torch.train.state import loss_and_grads, sample_ray_batch, train_step
+
+    cfg_file = os.path.join(root, "configs/nerf/lego_hashgrid.yaml")
+    extra = HASH_TRAIN_OVERRIDES[:HASH_TRAIN_OVERRIDES.index("train.epoch")]
+    cfg, state, _, launches, _, secs = _fresh_train(cfg_file, work, "corner", CORNER_STEPS,
+                                                    _hash_counters(), extra)
+    opts = RenderOptions.from_cfg(cfg)
+    check(opts.hash_layout == "corner", f"lego_hashgrid's layout is {opts.hash_layout}")
+    log(f"lego_hashgrid (corner): {CORNER_STEPS} steps from a fresh init in {secs:.2f} s; "
+        f"launches {launches}")
+    check(launches["hash_scatter_add_rows"] == 2 * CORNER_STEPS
+          and launches["hash_gather_rows"] > 2 * CORNER_STEPS
+          and launches["integrate"] == 2 * CORNER_STEPS,
+          f"corner train launches {launches}: expected 2 B4' and 2 B3 a step, and B4 more")
+    counters = {k: c for k, c in _hash_counters().items() if k != "hash_scatter_add_rows"}
+    service, _, _, request_ms = serve_phase(dev, cfg, counters, HASH_N_TIMED)
+    per_request = _request_launches(service, _hash_counters())
+    log(f"lego_hashgrid (corner): launches a request {per_request}")
+    check(per_request["hash_scatter_add_rows"] == 0 and per_request["hash_gather_rows"] > 0
+          and per_request["integrate"] > 0,
+          f"corner request launches {per_request}: expected B4 and B3, and no B4'")
+
+    imgs, poses, K = _model_views(service)
+    data = (torch.randint(0, 256, imgs.shape, dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(7)), poses, K)
+    plain = dataclasses.replace(opts, use_fused_mlp=False, use_integrate_kernel=False)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ro, rd, tgt = sample_ray_batch(gen, *data, int(cfg.task_arg.N_rays))
+    rng = gen.get_state()
+    for c in _hash_counters().values():
+        c.launches = 0
+    with _spy(hash_gather, "gather_rows") as seen_g, \
+            _spy(hash_gather, "scatter_add_rows") as seen_s:
+        lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, service.grid, gen)
+        torch.cuda.synchronize()
+        per_step = {k: c.launches for k, c in _hash_counters().items()}  # the spies' counts
+    check(per_step == {"hash_gather_rows": 2, "hash_scatter_add_rows": 2, "integrate": 2},
+          f"corner step launches {per_step}: expected 2 B4, 2 B4' and 2 B3 (coarse, fine)")
+    step = _hash_plain_steps(state.params, ro, rd, tgt, plain, service.grid, gen, rng)
+    torch.cuda.synchronize()
+    seen_g, seen_s = [a for a, _ in seen_g], [a for a, _ in seen_s]
+    check(len(seen_g) == 2 and len(seen_s) == 2,
+          f"{len(seen_g)} gathers and {len(seen_s)} scatter-adds in a corner step, expected 2")
+    fine_g = max(seen_g, key=lambda c: c[1].shape[0])
+    fine_s = max(seen_s, key=lambda c: c[0].shape[0])
+    check(fine_s[0].shape[0] == CORNER_ROWS and fine_g[0].shape[1] == 2,
+          f"corner fine batch: {fine_s[0].shape[0]} rows of {fine_g[0].shape[1]}")
+    gather_err = max(gather_errors(f"corner step {lbl}", *c) for lbl, c in
+                     zip(("coarse", "fine"), sorted(seen_g, key=lambda c: c[1].shape[0])))
+    scatter_err = max(scatter_errors(f"corner step {lbl}", *c) for lbl, c in
+                      zip(("coarse", "fine"), sorted(seen_s, key=lambda c: c[0].shape[0])))
+    hash_step_gate("corner", lk, gk, step, small_leaves=True)
+    gather = gather_times("corner NeRF fine batch", *fine_g)
+    scatter = scatter_times("corner NeRF fine batch", *fine_s, previous=False)
+
+    tx = make_optimizer(cfg)
+    n_rays = int(cfg.task_arg.N_rays)
+    for _ in range(3):
+        train_step(state, *data, tx, opts, n_rays, service.grid, gen)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(HASH_STEP_WINDOW):
+        t = time.perf_counter()
+        train_step(state, *data, tx, opts, n_rays, service.grid, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    w = np.array(times) * 1e3
+    step_ms = float(w.mean())
+    log(f"lego_hashgrid (corner) on the card: {step_ms:.3f} ms a step (mean of "
+        f"{HASH_STEP_WINDOW} warm steps; median {np.median(w):.3f}), {request_ms:.2f} ms a "
+        f"{SIZE}x{SIZE} request; the cellpack model (phases 12, 14): {cellpack['step_ms']:.3f} "
+        f"ms a step, {cellpack['request_ms']:.2f} ms a request; B4 {gather['ms']:.4f} ms "
+        f"({gather['bound_ms'] / gather['ms']:.3f} of its {gather['bound_ms']:.4f} ms bound, "
+        f"index_select {gather['library_ms']:.4f}), B4' {scatter['ms']:.4f} ms "
+        f"({scatter['bound_ms'] / scatter['ms']:.3f} of its {scatter['bound_ms']:.4f} ms bound, "
+        f"index_add_ {scatter['library_ms']:.4f}) on {CORNER_ROWS} rows of 4 B")
+    del service
+    torch.cuda.empty_cache()
+    shape = "lego_hashgrid fine batch: corner, 2 bf16 (4 B) rows, D = 3"
+    return {"gather": {"shape": shape, "rows": CORNER_ROWS, **gather,
+                       "launches_step": per_step["hash_gather_rows"],
+                       "launches_request": per_request["hash_gather_rows"]},
+            "scatter": {"shape": shape, "rows": CORNER_ROWS, **scatter,
+                        "launches_step": per_step["hash_scatter_add_rows"],
+                        "launches_request": per_request["hash_scatter_add_rows"]},
+            "gather_err": gather_err, "scatter_err": scatter_err, "step_ms": step_ms,
+            "request_ms": request_ms}
+
+
+def scenes_phase(root, work):
+    """Phase 38: each of the 7 other nerf_synthetic scene yamls trains
+    SCENE_STEPS steps from a fresh init at full width, through the trainer's
+    entry point, on a 2-frame 800x800 scene written under its own name."""
+    import numpy as np
+    from nerf_tpu_torch.data.blender import write_blender_scene
+    from nerf_tpu_torch.serve import look_at_pose
+
+    data_root = os.path.join(work, "scenes")
+    out = {}
+    for i, scene in enumerate(OTHER_SCENES):
+        rng = np.random.default_rng(i)
+        imgs = rng.integers(0, 256, (2, SCENE, SCENE, 4), dtype=np.uint8)
+        imgs[..., 3] = np.where(rng.uniform(size=(2, SCENE, SCENE)) < 0.5, 255, 0)
+        poses = np.stack([look_at_pose(0.4 + 2.1 * k, SCENE_PHI, RADIUS) for k in range(2)])
+        write_blender_scene(os.path.join(data_root, scene), {"train": (imgs, poses)},
+                            CAMERA_ANGLE_X)
+        cfg_file = os.path.join(root, f"configs/nerf/{scene}.yaml")
+        cfg, _, _, launches, text, secs = _fresh_train(
+            cfg_file, work, scene, SCENE_STEPS, _counters(),
+            ["train_dataset.data_root", data_root, "train_dataset.H", str(SCENE),
+             "train_dataset.W", str(SCENE)])
+        check(cfg.scene == scene and f"train data: 2 images {SCENE}x{SCENE}" in text,
+              f"{scene}: the trainer did not read the scene's own data")
+        check(launches["fused_nerf_bwd"] == 2 * SCENE_STEPS
+              and launches["integrate"] == 2 * SCENE_STEPS
+              and launches["fused_nerf_eval"] >= 2 * SCENE_STEPS,
+              f"{scene}: launches {launches}")
+        out[scene] = secs
+        log(f"configs/nerf/{scene}.yaml: {SCENE_STEPS} steps on its own 2-frame "
+            f"{SCENE}x{SCENE} scene in {secs:.2f} s (load, init, steps, ESS rebuild, "
+            f"checkpoint); launches {launches}")
+    return out
+
+
+def loader_phase(work, scene_dir):
+    """Phase 39: the native image loader on the machine that runs this: built from
+    nerf_tpu_torch/native/loader.cpp with g++, or, where it cannot be
+    (headers missing), the fact recorded and the PNG path run: phase 15's
+    test split through the Blender loader either way, and a JPEG (written by
+    cv2 where it is installed) decoded, or refused with its name."""
+    import importlib.util
+    import shutil as sh
+
+    import numpy as np
+    from nerf_tpu_torch import native
+    from nerf_tpu_torch.data.blender import BlenderDataset
+
+    reason = native.unavailable_reason()
+    log(f"native loader: g++ {sh.which('g++') or 'absent'}; "
+        + ("built and loaded from nerf_tpu_torch/native/loader.cpp" if reason is None
+           else f"not built ({reason}): frames go through utils/png.py"))
+    t = time.perf_counter()
+    ds = BlenderDataset(data_root=scene_dir, split="test", H=SCENE, W=SCENE)
+    load_s = time.perf_counter() - t
+    if reason is not None:
+        check(native._state.warned, "the PNG fallback gave no warning")
+    log(f"BlenderDataset test split ({len(ds)} frames {SCENE}x{SCENE}) through the "
+        f"{'native loader' if reason is None else 'PNG path'}: {load_s:.3f} s, "
+        f"{len(ds) / load_s:.2f} frames/s")
+    out = {"native": reason is None, "reason": reason, "frames_per_s": len(ds) / load_s}
+    if importlib.util.find_spec("cv2") is None:
+        return out
+    import cv2
+
+    img = (ds.images[0] * 255).round().astype(np.uint8)
+    jpg = os.path.join(work, "frame.jpg")
+    check(cv2.imwrite(jpg, img[..., ::-1]), "cv2 did not write a JPEG")
+    if reason is None:
+        got, want = native.decode(jpg), cv2.imread(jpg)[..., ::-1]
+        diff = int(np.abs(got.astype(int) - want).max())
+        log(f"a {SCENE}x{SCENE} JPEG: the native decode within {diff} of 255 of cv2's")
+        check(diff <= 1, "the native JPEG decode differs from cv2's")
+    else:
+        try:
+            native.read_image(jpg)
+        except ValueError as e:
+            check("frame.jpg" in str(e), f"the refusal does not name the file: {e}")
+            log(f"a JPEG without the native loader raises: {e}")
+        else:
+            check(False, "a JPEG was read without the native loader")
+    return out
+
+
+def mesh_phase(root, work, dev):
+    """Phase 40: python -m nerf_tpu_torch.extract_mesh on the committed lego
+    model at MESH_RES (MESH_RES^3 lattice points through B1 in chunks of
+    extract_mesh.CHUNK, the counter zeroed before and read after); the
+    lattice alone timed; at MESH_CHECK_RES the kernel's field and mesh
+    against the plain path's (phase 5's percentile gates on the densities;
+    face counts within 0.1%, every vertex within one cell of the other
+    mesh's)."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+    from nerf_tpu_torch import extract_mesh as em
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp
+    from nerf_tpu_torch.render.renderer import make_density_fn
+    from nerf_tpu_torch.run import load_eval_model
+    from nerf_tpu_torch.utils.mesh import extract_mesh
+
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    out_path = os.path.join(work, "lego_mesh.ply")
+    argv = ["--cfg_file", cfg_file, "trained_model_dir",
+            os.path.join(root, "checkpoints/nerf/lego/nerf"), "mesh.resolution", str(MESH_RES),
+            "mesh.level", str(MESH_LEVEL), "mesh.out", out_path]
+    fused_mlp.fused_nerf_eval.launches = 0
+    (verts, faces), text, secs = _run_cli(em.main, argv)
+    b1 = fused_mlp.fused_nerf_eval.launches
+    want = -(-MESH_RES ** 3 // em.CHUNK)
+    check(b1 == want, f"extract_mesh: {b1} B1 launches, expected {want}")
+    check(len(verts) > 10_000 and len(faces) > 10_000 and os.path.getsize(out_path) > 0,
+          f"extract_mesh: {len(verts)} vertices, {len(faces)} faces")
+
+    cfg = make_cfg(cfg_file, argv[2:])
+    cfg["enable_ess"] = False
+    opts, params, _ = load_eval_model(cfg, dev)
+    axes = [torch.linspace(-2.0, 2.0, MESH_RES, device=dev)] * 3
+    lattice = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3).contiguous()
+    density = make_density_fn(params["fine"], opts)
+    lattice_ms = time_ms(lambda: [density(c) for c in lattice.split(em.CHUNK)], reps=3)
+    pts = MESH_RES ** 3
+    log(f"extract_mesh at {MESH_RES}^3 = {pts} points: {len(verts)} vertices, {len(faces)} "
+        f"faces in {secs:.2f} s (load, lattice, marching tetrahedra on the host, PLY); B1 "
+        f"launches {b1}; the lattice's densities alone {lattice_ms:.2f} ms "
+        f"({pts / lattice_ms / 1e3:.0f} M points/s)")
+
+    plain = dataclasses.replace(opts, use_fused_mlp=False)
+    fields = {}
+    for name, o in (("kernel", opts), ("plain", plain)):
+        fn = make_density_fn(params["fine"], o)
+
+        def query(p, fn=fn):
+            with torch.no_grad():
+                return fn(torch.from_numpy(p).to(dev)).float().cpu().numpy()
+
+        fields[name] = (query, extract_mesh(query, MESH_LEVEL, em.BBOX, MESH_CHECK_RES))
+    axes = [np.linspace(-2.0, 2.0, MESH_CHECK_RES)] * 3
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+    k, p = fields["kernel"][0](grid), fields["plain"][0](grid)
+    err = np.abs(k - p) / (1.0 + np.abs(p))
+    (kv, kf), (pv, pf) = fields["kernel"][1], fields["plain"][1]
+    cell = 4.0 / (MESH_CHECK_RES - 1)
+    near = (max(cKDTree(pv).query(kv)[0].max(), cKDTree(kv).query(pv)[0].max())
+            if len(kv) and len(pv) else float("inf"))
+    log(f"mesh at {MESH_CHECK_RES}^3, kernel vs plain: densities p99 {np.quantile(err, 0.99):.3g}"
+        f", p99.9 {np.quantile(err, 0.999):.3g}, max {err.max():.3g} of 1 + |plain|; vertices "
+        f"{len(kv)} vs {len(pv)}, faces {len(kf)} vs {len(pf)}; farthest vertex from the other "
+        f"mesh {near:.4g} (a cell is {cell:.4g})")
+    check(np.quantile(err, 0.99) <= FUSED_P99_REL and np.quantile(err, 0.999) <= FUSED_P999_REL,
+          "the mesh lattice's densities: kernel and plain disagree")
+    check(abs(len(kf) - len(pf)) <= 0.001 * len(pf) and abs(len(kv) - len(pv)) <= 0.001 * len(pv)
+          and near <= cell, "the kernel's mesh differs from the plain path's")
+    return {"seconds": secs, "verts": len(verts), "faces": len(faces), "b1": b1,
+            "lattice_ms": lattice_ms}
+
+
+def ported_phase(root, work, dev, first_png):
+    """Phase 41: the committed lego weights written out as a reference-style
+    .pth (model. / model_fine. state_dict, weights [out, in]), ported by
+    python -m nerf_tpu_torch.port_torch_checkpoint, and served: the frame at
+    the warm-up pose must equal phase 4's (the committed model's) bit for
+    bit, through B1 and B3."""
+    import torch
+    from nerf_tpu_torch import port_torch_checkpoint
+    from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import fused_mlp, integrate
+    from nerf_tpu_torch.train.checkpoint import load_params
+    from nerf_tpu_torch.utils.torch_port import reference_state_dict
+
+    pth = os.path.join(work, "lego_reference.pth")
+    torch.save({"net": reference_state_dict(load_params(
+        os.path.join(root, "checkpoints/nerf/lego/nerf"))), "epoch": 49}, pth)
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    model_dir = os.path.join(work, "ported")
+    epoch, _, secs = _run_cli(port_torch_checkpoint.main,
+                              ["--cfg_file", cfg_file, pth, "trained_model_dir", model_dir])
+    check(epoch == 49, f"ported epoch {epoch}")
+    cfg = make_cfg(cfg_file, ["trained_model_dir", model_dir])
+    counters = {"fused_nerf_eval": fused_mlp.fused_nerf_eval, "integrate": integrate.integrate}
+    service, frame, launches, request_ms = serve_phase(dev, cfg, counters, n_timed=1)
+    same = bool((frame == first_png).all())
+    log(f"reference checkpoint: written, ported in {secs:.2f} s, served ({request_ms:.2f} ms a "
+        f"request, launches {launches}); the frame at the warm-up pose "
+        f"{'equals' if same else 'DIFFERS FROM'} the committed model's bit for bit")
+    check(same, "the ported checkpoint's frame differs from the committed model's")
+    del service
+    torch.cuda.empty_cache()
+    return {"request_ms": request_ms}
+
+
+def colmap_phase(root, work, scene_dir):
+    """Phase 42: a COLMAP model (PINHOLE camera, binary cameras, images and
+    points) of phase 15's train views, written with utils/colmap.py, through
+    python -m nerf_tpu_torch.colmap2nerf: its poses must be the views' own
+    up to its recentring and scaling (1e-6); the port's Blender loader reads
+    the result and the trainer takes COLMAP_STEPS steps on it from a fresh
+    init (B1, B2, B3)."""
+    import numpy as np
+    from nerf_tpu_torch import colmap2nerf
+    from nerf_tpu_torch.utils import colmap
+
+    with open(os.path.join(scene_dir, "lego", "transforms_train.json")) as f:
+        meta = json.load(f)
+    root_c = os.path.join(work, "colmap")
+    scene = os.path.join(root_c, "lego")
+    os.makedirs(os.path.join(scene, "images"))
+    os.makedirs(os.path.join(root_c, "sparse"))
+    focal = 0.5 * SCENE / math.tan(0.5 * meta["camera_angle_x"])
+    cams = {1: colmap.Camera(1, "PINHOLE", SCENE, SCENE,
+                             np.array([focal, focal, SCENE / 2, SCENE / 2]))}
+    imgs, c2ws = {}, []
+    for i, fr in enumerate(meta["frames"]):
+        name = os.path.basename(fr["file_path"]) + ".png"
+        shutil.copy(os.path.join(scene_dir, "lego", fr["file_path"] + ".png"),
+                    os.path.join(scene, "images", name))
+        c2w = np.asarray(fr["transform_matrix"], np.float64)
+        c2ws.append(c2w)
+        cv = c2w.copy()
+        cv[:3, 1:3] *= -1  # NeRF's camera axes -> COLMAP's (+Y down, +Z forward)
+        R = cv[:3, :3].T
+        imgs[i + 1] = colmap.Image(i + 1, colmap.rotmat2qvec(R), -R @ cv[:3, 3], 1, name)
+    pts = {1: colmap.Point3D(1, np.zeros(3), np.array([128, 128, 128], np.uint8), 0.5,
+                             np.array([1, 2]), np.array([0, 0]))}
+    sparse = os.path.join(root_c, "sparse")
+    colmap.write_cameras_bin(os.path.join(sparse, "cameras.bin"), cams)
+    colmap.write_images_bin(os.path.join(sparse, "images.bin"), imgs)
+    colmap.write_points3d_bin(os.path.join(sparse, "points3D.bin"), pts)
+    out, _, _ = _run_cli(colmap2nerf.main, ["--model_dir", sparse, "--images", "images",
+                                             "--out", os.path.join(scene, "transforms_train.json")])
+    centers = np.stack([m[:3, 3] for m in c2ws])
+    center = centers.mean(0)
+    scale = 4.0 / np.linalg.norm(centers - center, axis=1).mean()
+    by_name = {os.path.basename(fr["file_path"]): c2w for fr, c2w in zip(meta["frames"], c2ws)}
+    worst = 0.0
+    for fr in out["frames"]:
+        want = by_name[os.path.basename(fr["file_path"])].copy()
+        want[:3, 3] = (want[:3, 3] - center) * scale
+        worst = max(worst, float(np.abs(np.asarray(fr["transform_matrix"]) - want).max()))
+    check(len(out["frames"]) == len(c2ws) and worst <= 1e-6
+          and abs(out["camera_angle_x"] - meta["camera_angle_x"]) <= 1e-9,
+          f"colmap2nerf: {len(out['frames'])} frames, pose error {worst}")
+    cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
+    _, state, _, launches, text, secs = _fresh_train(
+        cfg_file, work, "colmap", COLMAP_STEPS, _counters(),
+        ["train_dataset.data_root", root_c, "train_dataset.H", str(SCENE),
+         "train_dataset.W", str(SCENE)])
+    check(f"train data: {len(c2ws)} images {SCENE}x{SCENE}" in text,
+          "the trainer did not read the COLMAP scene")
+    check(all(v > 0 for v in launches.values()), f"COLMAP scene launches {launches}")
+    log(f"COLMAP model of {len(c2ws)} lego views -> colmap2nerf (poses within {worst:.3g} of "
+        f"the views' own, recentred and scaled by {scale:.4f}) -> the Blender loader -> "
+        f"{COLMAP_STEPS} steps from a fresh init in {secs:.2f} s; launches {launches}")
+    return {"seconds": secs}
+
+
 def main() -> int:
     import torch
 
@@ -3424,12 +3898,13 @@ def main() -> int:
 
     work = tempfile.TemporaryDirectory()  # phases 11-19; the hash-grid model serves phase 18
     try:
-        return _from_phase_11(root, dev, smi, work.name, service, kernels, b3_rows, hash_errs)
+        return _from_phase_11(root, dev, smi, work.name, service, first_png, kernels, b3_rows,
+                              hash_errs)
     finally:
         work.cleanup()
 
 
-def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
+def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, hash_errs):
     import torch
     from nerf_tpu_torch.ops import fused_mlp, integrate
     from nerf_tpu_torch.train.checkpoint import load_params
@@ -3570,10 +4045,42 @@ def _from_phase_11(root, dev, smi, work, service, kernels, b3_rows, hash_errs):
         f"{img_fit['step_ms']:.3f} ms a step, PSNR {img_fit['psnr']:.4f} dB after "
         f"{IMG_FIT_EPOCHS} epochs; light stage {rig[1.0]['read_ms']:.1f} ms a first read at "
         f"{RIG}x{RIG}, {rig[1.0]['batch_ms']:.2f} ms a batch")
-    log("phase 36: done")
+    log("phase 36: lego_400_coarse trained from a fresh init and served (no fine pass)")
+    coarse = coarse400_phase(root, work, dev)
+    log("phase 37: lego_hashgrid (corner layout) trained, served, B4 and B4' on its fine batch")
+    corner = corner_phase(root, work, dev, {"step_ms": step_ms, "request_ms": request_ms})
+    for name, key, err in (("hash_gather_rows", "gather", "gather_err"),
+                           ("hash_scatter_add_rows", "scatter", "scatter_err")):
+        kern = next(k for k in kernels if k["name"] == name)
+        kern["max_abs_err"] = max(kern["max_abs_err"], corner[err])
+        kern["corner_nerf"] = corner[key]
+    log("phase 38: the 7 other nerf_synthetic scene yamls")
+    scenes = scenes_phase(root, work)
+    log("phase 39: the native image loader")
+    loader = loader_phase(work, scene_dir)
+    log("phase 40: mesh extraction from the committed lego model")
+    mesh = mesh_phase(root, work, dev)
+    log("phase 41: a reference-format checkpoint of the lego model, ported and served")
+    ported = ported_phase(root, work, dev, first_png)
+    log("phase 42: a COLMAP model through colmap2nerf, the Blender loader and the trainer")
+    colmap_run = colmap_phase(root, work, scene_dir)
+    cg, cs = corner["gather"], corner["scatter"]
+    log(f"configs and tools slice on {smi}: lego_400_coarse {coarse['request_ms']:.2f} ms a "
+        f"{SIZE}x{SIZE} request; lego_hashgrid (corner) {corner['step_ms']:.3f} ms a step, "
+        f"{corner['request_ms']:.2f} ms a request (cellpack {step_ms:.3f}, {request_ms:.2f}); "
+        f"B4 {cg['ms']:.4f} ms (bound {cg['bound_ms']:.4f}, index_select "
+        f"{cg['library_ms']:.4f}), B4' {cs['ms']:.4f} ms (bound {cs['bound_ms']:.4f}, index_add_ "
+        f"{cs['library_ms']:.4f}) on its {CORNER_ROWS} fine rows; 7 scenes "
+        f"{sum(scenes.values()):.1f} s; native loader "
+        f"{'built' if loader['native'] else 'not built: ' + str(loader['reason'])}; mesh at "
+        f"{MESH_RES}^3 {mesh['verts']} vertices in {mesh['seconds']:.2f} s ({mesh['b1']} B1 "
+        f"launches, lattice {mesh['lattice_ms']:.2f} ms); ported checkpoint "
+        f"{ported['request_ms']:.2f} ms a request, equal to the committed model's frame; COLMAP "
+        f"scene {colmap_run['seconds']:.2f} s")
+    log("phase 43: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "encoder_launches",
-             "encoder_shapes"]
+             "encoder_shapes", "corner_nerf"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                   for kern in kernels]}), flush=True)

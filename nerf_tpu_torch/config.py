@@ -32,6 +32,9 @@ class Config(dict):
         except KeyError as e:
             raise AttributeError(name) from e
 
+    def __setattr__(self, name, value):  # cfg.a.b = v sets the key, as nerf_tpu's Config
+        self[name] = value
+
     def __setitem__(self, name, value):
         super().__setitem__(name, Config(value) if isinstance(value, dict)
                             and not isinstance(value, Config) else value)
@@ -79,6 +82,7 @@ def default_cfg() -> Config:
                   "scheduler": {"type": "exponential", "gamma": 0.1, "decay_epochs": 500}},
         "ep_iter": 500, "save_ep": 40, "eval_ep": 40, "save_latest_ep": 10,
         "log_interval": 10, "grid_rebuild_ep": 10, "auto_restart": 0,
+        "detect_anomaly": False,
         "near": 2.0, "far": 6.0,
         "enable_ess": True, "enable_ert": True, "ert_threshold": 0.01,
         "occupancy_grid_resolution": 128,

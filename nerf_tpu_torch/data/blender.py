@@ -1,17 +1,20 @@
 """Blender synthetic (nerf_synthetic) scenes; counterpart of ``nerf_tpu/data/blender.py``.
 
-Reads ``<data_root>/<scene>/transforms_<split>.json`` and its PNG frames with
-the port's own decoder (``utils/png.py``; the card's machine has neither
-imageio nor cv2): a thread pool reads and inflates the files, then each
-frame is unfiltered in turn (numpy steps driven from Python: on an H100's
-host, eight threads doing all of it read 800x800 RGBA frames at 1.94 a
-second, one thread decodes 8.41). focal = 0.5 W /
-tan(0.5 camera_angle_x); RGBA frames are composited onto white as
-rgb * a + (1 - a) when ``white_bkgd``; ``input_ratio`` scales (H, W) and
+Reads ``<data_root>/<scene>/transforms_<split>.json`` and its frames.
+focal = 0.5 W / tan(0.5 camera_angle_x); ``input_ratio`` scales (H, W) and
 ``cams`` = (start, stop, step) slices the frames, as the JAX package applies
-them; frames whose file is missing are skipped. A frame of another size is
-resized bilinearly (``F.interpolate``, half-pixel centres, no antialias), as
-the JAX package's native loader and cv2's INTER_LINEAR at ratio 0.5 do.
+them; frames whose file is missing are skipped.
+
+Frames are decoded as stored by the port's native loader
+(``native.decode``: ``native/loader.cpp``, libpng and libjpeg; any PNG or
+JPEG) in a thread pool, composited on white as rgb * a + (1 - a) when
+``white_bkgd``, then resized (``resize_bilinear``: ``F.interpolate``,
+half-pixel centres, no antialias, as cv2's INTER_LINEAR and, at ratio 0.5,
+its INTER_AREA). Where the native library cannot be built (no g++, or no
+libpng/libjpeg headers), frames go through the port's own 8-bit PNG codec
+(``utils/png.py``) instead, after one warning naming what is missing; any
+other file raises naming it. Both decoders give the same uint8 frame, so
+the images do not depend on which one the host has.
 """
 from __future__ import annotations
 
@@ -24,17 +27,42 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import native
 from ..utils.png import encode_png, inflate_png, unfilter
 
 
-def _inflate_file(path: str):
+def _inflate_file(path: str, reason: str):
     with open(path, "rb") as f:
-        return inflate_png(f.read())
+        data = f.read()
+    try:
+        return inflate_png(data)
+    except ValueError as e:
+        raise ValueError(f"cannot read {path}: {e}; without the native loader only 8-bit "
+                         f"PNGs are read ({reason})") from e
+
+
+def read_frames(paths: Sequence[str], H: int, W: int, white_bkgd: bool) -> np.ndarray:
+    """Frame files -> [N, H, W, 3] float32 in [0, 1] (module docstring)."""
+    paths = list(paths)
+    if not paths:
+        return np.zeros((0, H, W, 3), np.float32)
+    workers = max(1, min(len(paths), os.cpu_count() or 1))
+    try:
+        native.get_lib()
+    except native.LoaderUnavailable as e:
+        native.warn_fallback(str(e))
+        with ThreadPoolExecutor(workers) as pool:
+            inflated = list(pool.map(lambda p: _inflate_file(p, str(e)), paths))
+        return np.stack([to_rgb(unfilter(*x), H, W, white_bkgd) for x in inflated])
+    with ThreadPoolExecutor(workers) as pool:  # ctypes lets go of the interpreter lock
+        return np.stack([to_rgb(img, H, W, white_bkgd) for img in pool.map(native.decode, paths)])
 
 
 def to_rgb(img: np.ndarray, H: int, W: int, white_bkgd: bool) -> np.ndarray:
-    """A decoded frame [h, w, C] uint8 -> [H, W, 3] float32 in [0, 1]."""
+    """A decoded frame [h, w] or [h, w, C] uint8 -> [H, W, 3] float32 in [0, 1]."""
     img = img.astype(np.float32) / 255.0
+    if img.ndim == 2:
+        img = img[..., None]
     if img.shape[-1] in (2, 4):  # with alpha
         rgb, alpha = img[..., :-1], img[..., -1:]
         img = rgb * alpha + (1.0 - alpha) if white_bkgd else rgb
@@ -84,10 +112,7 @@ class BlenderDataset:
             paths.append(path)
             poses.append(np.asarray(frame["transform_matrix"], dtype=np.float32))
 
-        with ThreadPoolExecutor(max(1, min(len(paths), os.cpu_count() or 1))) as pool:
-            images = [to_rgb(unfilter(*inflated), H, W, white_bkgd)
-                      for inflated in pool.map(_inflate_file, paths)]
-        self.images = np.stack(images) if images else np.zeros((0, H, W, 3), np.float32)
+        self.images = read_frames(paths, H, W, white_bkgd)
         self.poses = np.stack(poses) if poses else np.zeros((0, 4, 4), np.float32)
         self.K = np.array([[self.focal, 0, W / 2], [0, self.focal, H / 2], [0, 0, 1]],
                           dtype=np.float32)

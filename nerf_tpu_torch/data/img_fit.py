@@ -1,8 +1,8 @@
 """The img_fit dataset; counterpart of ``nerf_tpu/data/img_fit.py``.
 
 One view's RGB as a function of uv: view ``view`` of
-``<data_root>/<scene>/transforms_train.json``, read through the port's PNG
-codec, composited onto white (``white_bkgd``) before it is resized by
+``<data_root>/<scene>/transforms_train.json``, read through the port's image
+loader (``native.read_image``), composited onto white (``white_bkgd``) before it is resized by
 ``input_ratio`` (``blender.to_rgb``: bilinear with half-pixel centres, cv2's
 INTER_LINEAR, exact at ratio 0.5), and the uv grid of the resized image,
 u = linspace(0, 1, W) along a row and v = linspace(0, 1, H) down the
@@ -16,7 +16,7 @@ from typing import Dict
 
 import numpy as np
 
-from ..utils.png import inflate_png, unfilter
+from ..native import read_image
 from .blender import to_rgb
 
 
@@ -32,8 +32,7 @@ class ImgFitDataset:
         with open(os.path.join(scene_path, "transforms_train.json")) as f:
             meta = json.load(f)
         frame = meta["frames"][view]
-        with open(os.path.join(scene_path, frame["file_path"] + ".png"), "rb") as f:
-            img = unfilter(*inflate_png(f.read()))  # [h, w, C] uint8
+        img = read_image(os.path.join(scene_path, frame["file_path"] + ".png"))
         H, W = img.shape[:2]
         if input_ratio != 1.0:
             H, W = int(H * input_ratio), int(W * input_ratio)

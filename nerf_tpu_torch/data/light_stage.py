@@ -7,12 +7,15 @@ foreground (mask) and background (the world bound's screen box) pixels for
 training, the whole image for testing. A ray is [origin 3, unit direction
 3, the frame's latent index]; host-side numpy, as in the JAX package.
 
-Without cv2 or imageio: images and masks are read through the port's PNG
-codec (``utils/png.py``; the JAX package reads any format imageio reads),
-undistorted by ``utils/remap.undistort`` (cv2.undistort's map and bilinear
-arithmetic, the mask's in cv2's 15-bit integers), and resized by
-``input_ratio`` bilinearly (``blender.resize_bilinear``; cv2's INTER_LINEAR,
-its INTER_AREA at 0.5) and the mask by ``remap.resize_nearest``. The
+Without cv2 or imageio: images and masks are read by the port's native
+loader (``native.read_image``: any PNG or JPEG as stored, as the JAX
+package's ``imageio.imread``; 16-bit PNG samples keep their high byte, where
+imageio returns uint16; without the library, 8-bit PNGs only, through
+``utils/png.py``), undistorted by ``utils/remap.undistort`` (cv2.undistort's
+map and bilinear arithmetic, the mask's in cv2's 15-bit integers), and
+resized by ``input_ratio`` bilinearly (``blender.resize_bilinear``; cv2's
+INTER_LINEAR, its INTER_AREA at 0.5) and the mask by
+``remap.resize_nearest``. The
 foreground and background pixels are drawn from ``np.random.RandomState
 (seed)`` in the JAX loader's order, so both loaders pick the same pixels.
 """
@@ -23,7 +26,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..utils.png import read_png, write_png
+from ..native import read_image
+from ..utils.png import write_png
 from ..utils.remap import resize_nearest, undistort
 from ..utils.vis_utils import get_bbox_2d, get_bound_2d_mask
 from .blender import resize_bilinear
@@ -105,11 +109,11 @@ class LightStageDataset:
         if index in self._cache:
             return self._cache[index]
         item = self.items[index]
-        img = read_png(item["img_path"]).astype(np.float32) / 255.0
+        img = read_image(item["img_path"]).astype(np.float32) / 255.0
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, -1)
         img = np.ascontiguousarray(img[..., :3])
-        msk = read_png(self._mask_path(item["img_path"]))
+        msk = read_image(self._mask_path(item["img_path"]))
         if msk.ndim == 3:
             msk = msk[..., 0]
         msk = (msk != 0).astype(np.uint8)

@@ -186,3 +186,49 @@ def init_nerf_mlp(generator: Optional[torch.Generator] = None, D: int = 8, W: in
 
     return {k: [{n: leaf(x) for n, x in d.items()} for d in v] if isinstance(v, list)
             else {n: leaf(x) for n, x in v.items()} for k, v in mlp.to_tree().items()}
+
+
+def _f32(value) -> torch.Tensor:
+    """A tensor or array as a float32 CPU tensor, values unchanged."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.array(value, np.float32))
+
+
+def load_torch_state_dict(state_dict: Mapping[str, Any], D: int = 8,
+                          use_viewdirs: bool = True) -> Tree:
+    """The counterpart of ``nerf_tpu``'s ``load_torch_state_dict``: a torch
+    ``NeRF`` state_dict (the reference's ``network.py:9``; weights [out, in])
+    -> the JAX-layout tree (weights transposed to [in, out]) of contiguous
+    float32 CPU tensors."""
+    def lin(name):
+        return {"w": _f32(state_dict[f"{name}.weight"]).t().contiguous(),
+                "b": _f32(state_dict[f"{name}.bias"])}
+
+    params: Tree = {"pts_linears": [lin(f"pts_linears.{i}") for i in range(D)]}
+    if use_viewdirs:
+        params["feature_linear"] = lin("feature_linear")
+        params["alpha_linear"] = lin("alpha_linear")
+        params["views_linears"] = [lin("views_linears.0")]
+        params["rgb_linear"] = lin("rgb_linear")
+    else:
+        params["output_linear"] = lin("output_linear")
+    return params
+
+
+def load_weights_from_keras(weights: Sequence[Any], D: int = 8,
+                            use_viewdirs: bool = True) -> Tree:
+    """The counterpart of ``nerf_tpu``'s ``load_weights_from_keras``: the
+    original TF-NeRF keras weight list ([kernel, bias] pairs of
+    pts_linears[0..D-1], feature_linear, views_linears[0], rgb_linear,
+    alpha_linear) -> the JAX-layout tree of float32 CPU tensors. Keras
+    kernels are [in, out] already, so they go in untransposed."""
+    if not use_viewdirs:
+        raise ValueError("original TF-NeRF keras checkpoints are viewdir models")
+
+    def pair(idx):
+        return {"w": _f32(weights[2 * idx]), "b": _f32(weights[2 * idx + 1])}
+
+    return {"pts_linears": [pair(i) for i in range(D)], "feature_linear": pair(D),
+            "views_linears": [pair(D + 1)], "rgb_linear": pair(D + 2),
+            "alpha_linear": pair(D + 3)}

@@ -3,7 +3,11 @@
     python -m nerf_tpu_torch.train --cfg_file configs/nerf/lego.yaml [key value ...]
 
 Runs on CUDA; ``--device cpu`` runs the plain PyTorch versions on the CPU.
-``auto_restart N`` resumes from the latest checkpoint after up to N failures.
+``auto_restart N`` resumes from the latest checkpoint after up to N failures
+(any ``Exception``; a ``KeyboardInterrupt`` is never retried), as the
+top-level ``train.py`` does. ``detect_anomaly True`` runs the training under
+``torch.autograd.set_detect_anomaly(True)`` (JAX: ``jax_debug_nans``) and puts
+the previous mode back afterwards, also when the training raises.
 
 Data parallelism: when JAX's rule (``loop.make_train_mesh``: the cards, or
 on the CPU ``mesh_devices`` gloo ranks, capped by ``mesh_devices`` and
@@ -23,9 +27,12 @@ top-level ``train.py`` dispatches it; ``--test`` evaluates it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import traceback
+
+import torch
 
 from ..config import make_cfg
 from ..device import resolve_device
@@ -61,8 +68,48 @@ def launches() -> dict:
             "hash_scatter_add_rows": hash_gather.scatter_add_rows.launches}
 
 
+@contextlib.contextmanager
+def anomaly_mode(enabled: bool):
+    """``torch.autograd.set_detect_anomaly(True)`` inside the block when
+    ``enabled``; the mode found on entry is put back on exit."""
+    if not enabled:
+        yield
+        return
+    previous = torch.is_anomaly_enabled()
+    torch.autograd.set_detect_anomaly(True)
+    try:
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(previous)
+
+
+def train_with_restarts(cfg, device=None):
+    """``train(cfg)``, resumed from the latest checkpoint after up to
+    ``cfg.auto_restart`` failures of any kind but ``KeyboardInterrupt``."""
+    max_restarts = int(cfg.get("auto_restart", 0))
+    attempt = 0
+    while True:
+        try:
+            return train(cfg, device=device)
+        except KeyboardInterrupt:
+            raise
+        except Exception as e:
+            attempt += 1
+            if attempt > max_restarts:
+                raise
+            traceback.print_exc()
+            print(f"[auto_restart] attempt {attempt}/{max_restarts}: resuming from the "
+                  f"latest checkpoint after {type(e).__name__}", flush=True)
+            cfg["resume"] = True
+
+
 def main(argv=None):
     cfg, args = parse_args(argv)
+    with anomaly_mode(bool(cfg.get("detect_anomaly", False))):
+        return _main(cfg, args)
+
+
+def _main(cfg, args):
     if cfg.task not in ("nerf", "img_fit"):
         raise NotImplementedError(f"task {cfg.task!r} is not ported")
     if args.test:
@@ -84,25 +131,12 @@ def main(argv=None):
             launch("nerf_tpu_torch.train", rank_argv + list(args.opts) + ["distributed", "True"],
                    world, dev.type)
             return None
-    max_restarts = int(cfg.get("auto_restart", 0))
-    attempt = 0
     before = launches()
-    while True:
-        try:
-            out = train(cfg, device=args.device)
-            if int(os.environ.get("RANK", 0)) == 0:
-                print("kernel launches: " + ", ".join(f"{k} {v - before[k]}"
-                                                      for k, v in launches().items()), flush=True)
-            return out
-        except (RuntimeError, FloatingPointError) as e:
-            attempt += 1
-            if attempt > max_restarts:
-                raise
-            traceback.print_exc()
-            print(f"[auto_restart] attempt {attempt}/{max_restarts}: resuming from the "
-                  f"latest checkpoint after {type(e).__name__}", flush=True)
-            cfg["resume"] = True
-
+    out = train_with_restarts(cfg, device=args.device)
+    if int(os.environ.get("RANK", 0)) == 0:
+        print("kernel launches: " + ", ".join(f"{k} {v - before[k]}"
+                                              for k, v in launches().items()), flush=True)
+    return out
 
 if __name__ == "__main__":
     main(sys.argv[1:])

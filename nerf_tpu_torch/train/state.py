@@ -95,10 +95,16 @@ def sample_ray_batch(generator: Optional[torch.Generator], images_u8: torch.Tens
 def loss_and_grads(params: Dict[str, Any], rays_o, rays_d, target, opts: RenderOptions,
                    grid: Optional[OccupancyGrid], generator: Optional[torch.Generator] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
-    """nerf_loss and its gradient for every parameter leaf (JAX order)."""
+    """nerf_loss and its gradient for every parameter leaf (JAX order). The
+    fine MLP's leaves get zeros when ``N_importance`` is 0, as JAX's
+    gradient gives them; any other leaf the loss does not reach raises."""
     loss, stats = nerf_loss(params, rays_o, rays_d, target, opts, grid, generator)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
-    return loss.detach(), stats, list(grads)
+    leaves = tree_leaves(params)
+    unused = ({id(p) for p in tree_leaves(params["fine"])}
+              if opts.n_importance == 0 and "fine" in params else set())
+    grads = iter(torch.autograd.grad(loss, [p for p in leaves if id(p) not in unused]))
+    return loss.detach(), stats, [torch.zeros_like(p) if id(p) in unused else next(grads)
+                                  for p in leaves]
 
 
 def _global_stats(grads: List[torch.Tensor], stats: Dict[str, torch.Tensor]

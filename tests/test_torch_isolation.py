@@ -108,6 +108,21 @@ def test_the_breadth_slice_is_scanned(path):
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
 
 
+# the slice of the native loader, mesh extraction, reference checkpoints and
+# COLMAP, with their CLIs: each is found by the scan above
+TOOLS_SLICE = ["nerf_tpu_torch/native/__init__.py", "nerf_tpu_torch/utils/mesh.py",
+               "nerf_tpu_torch/utils/torch_port.py", "nerf_tpu_torch/utils/colmap.py",
+               "nerf_tpu_torch/utils/colmap_database.py",
+               "nerf_tpu_torch/utils/colmap_export.py", "nerf_tpu_torch/extract_mesh.py",
+               "nerf_tpu_torch/port_torch_checkpoint.py", "nerf_tpu_torch/colmap2nerf.py"]
+
+
+@pytest.mark.parametrize("path", TOOLS_SLICE)
+def test_the_loader_mesh_checkpoint_and_colmap_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
 # image libraries: installed here, partly on the card's machine (cv2 and PIL,
 # not imageio); a module that tried one would run another path where it is
 # missing, so the data and model modules use the port's own codec and remap
@@ -115,12 +130,16 @@ IMAGE_LIBS = ("cv2", "imageio", "PIL")
 IMAGE_FREE = sorted(f for f in FILES if f.startswith(("nerf_tpu_torch/data/",
                                                       "nerf_tpu_torch/models/"))) + [
     "nerf_tpu_torch/train/img_fit_loop.py", "nerf_tpu_torch/utils/remap.py",
-    "nerf_tpu_torch/utils/vis_utils.py", "nerf_tpu_torch/utils/png.py"]
+    "nerf_tpu_torch/utils/vis_utils.py", "nerf_tpu_torch/utils/png.py",
+    "nerf_tpu_torch/native/__init__.py", "nerf_tpu_torch/utils/mesh.py",
+    "nerf_tpu_torch/utils/torch_port.py"] + sorted(
+    f for f in FILES if f.startswith("nerf_tpu_torch/utils/colmap"))
 
 
 @pytest.mark.parametrize("path", IMAGE_FREE)
 def test_data_and_model_modules_import_no_image_library(path):
     assert "nerf_tpu_torch/data/light_stage.py" in IMAGE_FREE
+    assert "nerf_tpu_torch/utils/colmap_export.py" in IMAGE_FREE
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in IMAGE_LIBS]
     assert not bad, f"{path} imports {bad}"
 
