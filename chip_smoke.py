@@ -83,7 +83,10 @@ Phases, each printed with its elapsed seconds:
      scatter-add on that step's fine batch (3,145,728 rows) beside their
      bounds, their plain versions and one PyTorch call each; the
      scatter-add timed in turns with the previous (atomic) kernel, which it
-     must beat, its three launches alone and its design's byte floor;
+     must beat, its three launches alone and its design's byte floor; the
+     gather, exact against plain and the previous kernel on those rows, in
+     turns with the previous kernel (gather_rows_simple), which it must not
+     trail, beside its sector floor (hash_gather.gather_bytes);
      integrate on the hash-grid serving tiles and the train step's batches
      (N = 1024, S = 64 and 192) in turns with the previous kernel, and the
      launches x (time - bound) of integrate per request and per step.
@@ -216,8 +219,10 @@ Phases, each printed with its elapsed seconds:
      and never under frequency, SH, tri-plane and the frequency or tri-plane
      D-NeRF; each type's ms; B4 and B4' alone on the cuda_hashgrid_4d rows
      (16 corners x 16 levels x 196,608 = 50,331,648 rows of 4 bytes) and the
-     hashgrid rows (25,165,824), each with its bound and library call
-     (their "encoder_shapes" in the kernels line);
+     hashgrid rows (25,165,824), each with its bound and library call, B4
+     exact against plain and the previous kernel there and in turns with
+     it, which B4 must beat, beside its sector floor (their
+     "encoder_shapes" in the kernels line);
  34. configs/img_fit/lego_view0.yaml on view 0 of phase 15's scene
      (input_ratio 0.5, N_pixels 8192) through python -m
      nerf_tpu_torch.train's main for IMG_FIT_EPOCHS epochs, then run --type
@@ -240,7 +245,9 @@ Phases, each printed with its elapsed seconds:
      served; one step's gathers (exact) and scatter-adds against their plain
      versions and the whole step against the plain path (phase 13's gate);
      B4 and B4' on its fine batch (CORNER_ROWS rows of 4 bytes) beside their
-     bounds and library calls ("corner_nerf" in the kernels line); ms a
+     bounds and library calls, B4 also exact against the previous kernel
+     there and in turns with it, which it must beat, beside its sector
+     floor ("corner_nerf" in the kernels line); ms a
      step and a request beside the cellpack model's (phases 12, 14);
  38. each of the 7 other nerf_synthetic scene yamls trained SCENE_STEPS
      steps at full width from a fresh init on a 2-frame 800x800 scene
@@ -348,7 +355,8 @@ PEAK_BYTES = 3.35e12
 #   so the small gradient differences above move the parameters apart and
 #   the gap grows step by step; how far bf16 itself moves the trajectory
 #   bounds that growth.
-# - hash-table gather (B4): exact, on random tables and on the path's rows.
+# - hash-table gather (B4): exact, on random tables and on the path's rows,
+#   against the plain version and the previous kernel (gather_rows_simple).
 # - its scatter-add: per element within hash_gather.scatter_add_tolerance
 #   of the plain version (index_add_ into float32, rounded once to bf16):
 #   two float32 sums of the same n terms in other orders lie within
@@ -433,6 +441,9 @@ HASH_STEP_LOSS_REL, HASH_GRAD_REL = 1e-4, 1e-2
 HASH_SMALL_LEAF = 1e-4
 HASH_TRAIN_STEPS, HASH_STEP_WINDOW, HASH_N_TIMED = 200, 20, 16
 HASH_ROWS = 3_145_728  # a train step's fine batch: 1024 rays x 192 samples x 16 levels
+# B4 against the previous gather in turns on rows wider than 4 bytes: no
+# slower, beyond the turns' spread (B4 must be faster on 4-byte rows)
+GATHER_NO_SLOWER = 1.03
 # the hash-grid phases override only the dataset and the cadence
 HASH_TRAIN_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "100",
                         "train_dataset.H", "800", "train_dataset.W", "800", "train.epoch", "1",
@@ -1287,17 +1298,20 @@ def scatter_errors(label, idx, cot, n_rows):
 
 
 def gather_errors(label, table, idx):
-    """Hold gather_rows against its plain version: exact. Returns 0.0."""
+    """Hold gather_rows against its plain version and the previous kernel
+    (gather_rows_simple): exact. Returns 0.0."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
     got = hash_gather.gather_rows(table, idx)
     want = hash_gather.gather_rows_plain(table, idx)
+    old = hash_gather.gather_rows_simple(table, idx)
     torch.cuda.synchronize()
-    same = bool(torch.equal(got, want))
+    same = bool(torch.equal(got, want)) and bool(torch.equal(got, old))
     log(f"gather_rows {label}: {idx.shape[0]} rows of {table.shape[1]} {table.dtype} from "
-        f"{table.shape[0]}: {'exact' if same else 'DIFFERS'}")
-    check(same, f"gather_rows disagrees with gather_rows_plain on {label}")
+        f"{table.shape[0]}: {'exact' if same else 'DIFFERS'} against the plain version and the "
+        f"previous kernel")
+    check(same, f"gather_rows disagrees with gather_rows_plain or gather_rows_simple on {label}")
     return 0.0
 
 
@@ -1499,32 +1513,48 @@ def hash_step_gate(label, lk, gk, step, small_leaves):
 
 
 def gather_times(label, table, idx):
-    """B4 alone on (table [R, W], idx [N]) beside its bound, plain version
-    and library call (torch.index_select)."""
+    """B4 alone on (table [R, W], idx [N]), exact against its plain version
+    and the previous kernel on these rows, timed in turns with the previous
+    kernel (new, old, old, new) beside its bound, sector floor, plain
+    version and library call (torch.index_select). B4 must be faster than
+    both on rows of 4 bytes, and no slower than the previous kernel on the
+    others."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
+    gather_errors(f"{label} (timed rows)", table, idx)
     n = idx.shape[0]
     out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
     lib, stream = hash_gather._lib(), torch.cuda.current_stream().cuda_stream
     row_b = table.shape[1] * table.element_size()
     gargs = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n, row_b, stream)
-    check(lib.launch_gather_rows(*gargs) == 0, "launch_gather_rows failed")
-    ms = time_ms(lambda: lib.launch_gather_rows(*gargs), reps=50)
+    calls = {"new": lambda: lib.launch_gather_rows(*gargs),
+             "old": lambda: lib.launch_gather_rows_simple(*gargs)}
+    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_gather_rows failed")
+    turns = [time_ms(calls[k], reps=50) for k in ("new", "old", "old", "new")]
+    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     plain_ms = time_ms(lambda: hash_gather.gather_rows_plain(table, idx), reps=20)
     library_ms = time_ms(lambda: torch.index_select(table, 0, idx), reps=20)
     distinct = int(torch.unique(idx).numel())
     # bytes these inputs need: each index once, each distinct row once, each
-    # gathered row written once
-    nbytes = 4 * n + distinct * row_b + n * row_b
+    # gathered row written once; and the same at 32-byte sector grain
+    nbytes, sector_bytes = hash_gather.gather_bytes(idx, row_b)
     bound = nbytes / PEAK_BYTES * 1e3
+    floor = sector_bytes / PEAK_BYTES * 1e3
     log(f"gather_rows {label}, {n} rows of {row_b} B ({distinct} distinct of {table.shape[0]}): "
         f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the bound's bytes, "
-        f"{bound / ms:.3f} of the bound), plain {plain_ms:.4f} ms, torch.index_select "
-        f"{library_ms:.4f} ms, bound {bound:.4f} ms (HBM; a table that fits the 50 MB L2 "
-        f"serves repeated rows for less)")
+        f"{bound / ms:.3f} of the bound), previous kernel {old_ms:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in turns)}), plain {plain_ms:.4f} ms, torch.index_select "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms, sector floor {floor:.4f} ms (HBM; a "
+        f"table that fits the 50 MB L2 serves repeated rows for less)")
+    if row_b == 4:
+        check(ms < old_ms and ms < library_ms,
+              f"B4 on {label} is not faster than the previous kernel and index_select")
+    else:
+        check(ms <= GATHER_NO_SLOWER * old_ms,
+              f"B4 on {label} is slower than the previous kernel")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "previous_ms": old_ms, "sector_floor_ms": floor}
 
 
 def scatter_times(label, sidx, cot, n_rows, previous=True):
@@ -3541,7 +3571,8 @@ def corner_phase(root, work, dev, cellpack):
         f"{SIZE}x{SIZE} request; the cellpack model (phases 12, 14): {cellpack['step_ms']:.3f} "
         f"ms a step, {cellpack['request_ms']:.2f} ms a request; B4 {gather['ms']:.4f} ms "
         f"({gather['bound_ms'] / gather['ms']:.3f} of its {gather['bound_ms']:.4f} ms bound, "
-        f"index_select {gather['library_ms']:.4f}), B4' {scatter['ms']:.4f} ms "
+        f"index_select {gather['library_ms']:.4f}, previous kernel {gather['previous_ms']:.4f}), "
+        f"B4' {scatter['ms']:.4f} ms "
         f"({scatter['bound_ms'] / scatter['ms']:.3f} of its {scatter['bound_ms']:.4f} ms bound, "
         f"index_add_ {scatter['library_ms']:.4f}) on {CORNER_ROWS} rows of 4 B")
     del service
@@ -3930,7 +3961,10 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
     gather_t, scatter_t, step_ms = hash_times_phase(hcfg, hstate, hservice.grid, hdata, dev,
                                                     fine_g, fine_s)
     log(f"hash-grid model on {smi}: {step_ms:.3f} ms per train step (1024 rays), "
-        f"{request_ms:.2f} ms per {SIZE}x{SIZE} request; launches on its serving path "
+        f"{request_ms:.2f} ms per {SIZE}x{SIZE} request; B4 on the fine batch "
+        f"{gather_t['ms']:.4f} ms (previous kernel {gather_t['previous_ms']:.4f}, bound "
+        f"{gather_t['bound_ms']:.4f}, sector floor {gather_t['sector_floor_ms']:.4f}); "
+        f"launches on its serving path "
         f"{hserve_launches}, on its train path {hash_launches}")
     b3_summary(b3_rows + hash_b3 + train_b3)
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], hash_int_err)
@@ -4039,7 +4073,8 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
     rig = light_stage_phase(work)
     g4, s4 = timed["cuda_hashgrid_4d"][:2]
     log(f"breadth slice on {smi}: B4 on the 4-D corner rows {g4['ms']:.4f} ms (bound "
-        f"{g4['bound_ms']:.4f}, index_select {g4['library_ms']:.4f}), B4' {s4['ms']:.4f} ms "
+        f"{g4['bound_ms']:.4f}, index_select {g4['library_ms']:.4f}, previous kernel "
+        f"{g4['previous_ms']:.4f}), B4' {s4['ms']:.4f} ms "
         f"(bound {s4['bound_ms']:.4f}, index_add_ {s4['library_ms']:.4f}); under the encoder "
         f"phase B4 {enc['gather']} and B4' {enc['scatter']} launches; img_fit "
         f"{img_fit['step_ms']:.3f} ms a step, PSNR {img_fit['psnr']:.4f} dB after "
@@ -4069,7 +4104,8 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
         f"{SIZE}x{SIZE} request; lego_hashgrid (corner) {corner['step_ms']:.3f} ms a step, "
         f"{corner['request_ms']:.2f} ms a request (cellpack {step_ms:.3f}, {request_ms:.2f}); "
         f"B4 {cg['ms']:.4f} ms (bound {cg['bound_ms']:.4f}, index_select "
-        f"{cg['library_ms']:.4f}), B4' {cs['ms']:.4f} ms (bound {cs['bound_ms']:.4f}, index_add_ "
+        f"{cg['library_ms']:.4f}, previous kernel {cg['previous_ms']:.4f}), B4' {cs['ms']:.4f} ms "
+        f"(bound {cs['bound_ms']:.4f}, index_add_ "
         f"{cs['library_ms']:.4f}) on its {CORNER_ROWS} fine rows; 7 scenes "
         f"{sum(scenes.values()):.1f} s; native loader "
         f"{'built' if loader['native'] else 'not built: ' + str(loader['reason'])}; mesh at "
@@ -4079,7 +4115,8 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
         f"scene {colmap_run['seconds']:.2f} s")
     log("phase 43: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "encoder_launches",
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
+             "sector_floor_ms", "encoder_launches",
              "encoder_shapes", "corner_nerf"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}

@@ -15,12 +15,29 @@
 // table (33.5 MB) fits the 50 MB L2, so repeated rows mostly hit there.
 //
 // The gather. The TPU kernel pipelines one DMA per row eight deep, because a
-// TPU core has no random per-lane load. Here every thread moves the widest
-// aligned vector that divides a row, up to 16 bytes (a 32-byte row is two
-// 16-byte vectors, a 4-byte row one 32-bit word), so a warp covers whole
-// rows, neighbouring threads write neighbouring addresses, the table is read
-// through the read-only path, and the many warps in flight on 132 SMs hide
-// the latency the TPU hid with its DMA queue.
+// TPU core has no random per-lane load. Here the limit is bytes in flight:
+// by Little's law 3.35 TB/s over 132 SMs at ~0.7 us of DRAM latency needs
+// ~18 KB in flight per SM, and one 4-byte row a thread (the previous
+// kernel, launch_gather_rows_simple, whose grid-stride loop also spends a
+// 64-bit division a row) keeps ~8 KB there, so on the corner layout's
+// 4-byte rows it read under half of its bound. So a thread moves several
+// rows (ROWS of 2-8 bytes; WIDE_VECS 16-byte vectors of wider rows), in
+// three steps: all its indices (16-byte vectors where the rows are narrow
+// and idx is aligned to them), then all its table loads, then all its
+// stores as vectors (up to 16 bytes). A block takes one tile of THREADS x
+// (vectors a thread) output vectors, item k of thread t at vector
+// k THREADS + t, so neighbouring threads read neighbouring indices and
+// write neighbouring addresses; no grid-stride loop and no 64-bit division
+// on the paths' rows (2-32 bytes). Cache policy per access: indices and
+// output are touched once and stream past the caches (ld/st.global.cs);
+// table rows are read with an L2 evict_last policy, so the table (33.5 MB,
+// in the 50 MB L2) stays there across the ~200 MB of indices and output
+// that stream through L2 a launch, and from one launch to the next. The
+// hints are per instruction: no stream or device attribute is set.
+// What bounds it then: on rows of 4 bytes every row is a table sector
+// request (32 bytes) unless a neighbouring lane's row shares its sector,
+// and those requests, not DRAM, are the limit (PERF.md, measured with
+// nerf_tpu_torch/tools/gather_variants.py, which times the switches below).
 //
 // The scatter-add accumulates in a float32 buffer (no bf16 sums, so
 // duplicates as heavy as the coarse levels' 4,096 cells lose nothing to
@@ -55,7 +72,8 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// Vec: the vector type one thread moves (uint4 = 16 B ... uint16_t = 2 B).
+// The previous gather (launch_gather_rows_simple): one vector a thread, the
+// widest aligned vector that divides a row, in a grid-stride loop.
 template <typename Vec>
 __global__ void __launch_bounds__(THREADS)
 gather_kernel(const Vec* __restrict__ table, const int* __restrict__ idx,
@@ -68,6 +86,199 @@ gather_kernel(const Vec* __restrict__ table, const int* __restrict__ idx,
     if (r < 0 || (long long)r >= n_rows) __trap();
     out[t] = __ldg(table + (long long)r * vecs_per_row + c);
   }
+}
+
+// Switched by nerf_tpu_torch/tools/gather_variants.py, which also measured
+// them (PERF.md): 4 rows and 2 vectors a thread were the fastest of 1-8.
+constexpr int ROWS = 4;       // rows a thread, for rows of 2, 4 and 8 bytes
+constexpr int WIDE_VECS = 2;  // 16-byte vectors a thread, for rows of 16 bytes and more
+// indices: 0 through the read-only path, 1 ld.global.cs (streaming),
+// 2 ld.global.nc.L1::no_allocate
+constexpr int INDEX_HINT = 1;
+constexpr bool STREAM_OUTPUT = true;     // st.global.cs
+constexpr bool TABLE_EVICT_LAST = true;  // table rows with an L2 evict_last policy
+
+template <int B> struct VecOf;  // an aligned vector of B bytes
+template <> struct VecOf<16> { using type = uint4; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<4> { using type = uint32_t; };
+template <> struct VecOf<2> { using type = uint16_t; };
+
+__device__ __forceinline__ int ld_no_allocate(const int* p) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int2 ld_no_allocate(const int2* p) {
+  int2 v;
+  asm("ld.global.nc.L1::no_allocate.v2.s32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int4 ld_no_allocate(const int4* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+// Indices (int, int2 or int4), read once.
+template <typename T>
+__device__ __forceinline__ T load_once(const T* p) {
+  if constexpr (INDEX_HINT == 1) return __ldcs(p);
+  else if constexpr (INDEX_HINT == 2) return ld_no_allocate(p);
+  else return __ldg(p);
+}
+template <typename T>
+__device__ __forceinline__ void store_once(T* p, T v) {
+  if constexpr (STREAM_OUTPUT) __stcs(p, v);
+  else *p = v;
+}
+
+__device__ __forceinline__ uint64_t table_policy() {
+  uint64_t pol = 0;
+  if constexpr (TABLE_EVICT_LAST)
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+// A table row (or a 16-byte part of one), read-only, kept in L2 by pol.
+__device__ __forceinline__ uint4 load_table(const uint4* p, uint64_t pol) {
+  if constexpr (!TABLE_EVICT_LAST) return __ldg(p);
+  uint4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint2 load_table(const uint2* p, uint64_t pol) {
+  if constexpr (!TABLE_EVICT_LAST) return __ldg(p);
+  uint2 v;
+  asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+      : "=r"(v.x), "=r"(v.y) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint32_t load_table(const uint32_t* p, uint64_t pol) {
+  if constexpr (!TABLE_EVICT_LAST) return __ldg(p);
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ uint16_t load_table(const uint16_t* p, uint64_t pol) {
+  if constexpr (!TABLE_EVICT_LAST) return __ldg(p);
+  uint16_t v;
+  asm("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void check_row(int r, long long n_rows) {
+  if (r < 0 || (long long)r >= n_rows) __trap();
+}
+
+// N indices at p: 16-byte (or 8-byte) vectors if VEC (p aligned to them).
+template <int N, bool VEC>
+__device__ __forceinline__ void load_indices(const int* p, int (&r)[N]) {
+  if constexpr (VEC && N % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < N / 4; ++q) {
+      const int4 t = load_once(reinterpret_cast<const int4*>(p) + q);
+      r[4 * q] = t.x, r[4 * q + 1] = t.y, r[4 * q + 2] = t.z, r[4 * q + 3] = t.w;
+    }
+  } else if constexpr (VEC && N == 2) {
+    const int2 t = load_once(reinterpret_cast<const int2*>(p));
+    r[0] = t.x, r[1] = t.y;
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) r[e] = load_once(p + e);
+  }
+}
+
+// Narrow rows (RB = 2, 4 or 8 bytes): each output vector is RPV whole rows
+// (RB x RPV <= 16 bytes), U vectors a thread (RPV x U = ROWS rows). The
+// last n % RPV rows, if any, are one short vector, copied row by row.
+template <int RB, int RPV, int U, bool IDX_VEC>
+__global__ void __launch_bounds__(THREADS)
+gather_narrow_kernel(const typename VecOf<RB>::type* __restrict__ table,
+                     const int* __restrict__ idx, void* __restrict__ out_v, long long n_rows,
+                     long long n) {
+  using Row = typename VecOf<RB>::type;
+  using Vec = typename VecOf<RB * RPV>::type;
+  union Pack {
+    Vec vec;
+    Row row[RPV];
+  };
+  Vec* out = static_cast<Vec*>(out_v);
+  const long long n_full = n / RPV;
+  const long long v0 = (long long)blockIdx.x * (THREADS * U) + threadIdx.x;
+  int r[U][RPV];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (v0 + k * THREADS < n_full) load_indices<RPV, IDX_VEC>(idx + (v0 + k * THREADS) * RPV, r[k]);
+  bool bad = false;  // one branch for all checks, so every table load can be in flight at once
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (v0 + k * THREADS < n_full) {
+#pragma unroll
+      for (int e = 0; e < RPV; ++e) bad |= r[k][e] < 0 || (long long)r[k][e] >= n_rows;
+    }
+  if (bad) __trap();
+  const uint64_t pol = table_policy();
+  Pack got[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (v0 + k * THREADS < n_full) {
+#pragma unroll
+      for (int e = 0; e < RPV; ++e) got[k].row[e] = load_table(table + r[k][e], pol);
+    }
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (v0 + k * THREADS < n_full) store_once(out + v0 + k * THREADS, got[k].vec);
+  if constexpr (RPV > 1) {
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      if (v0 + k * THREADS == n_full) {
+        Row* out_rows = static_cast<Row*>(out_v);
+        for (long long i = n_full * RPV; i < n; ++i) {
+          const int ri = load_once(idx + i);
+          check_row(ri, n_rows);
+          store_once(out_rows + i, load_table(table + ri, pol));
+        }
+      }
+  }
+}
+
+// Other rows: VPR vectors of type V each (VPR = 0: vpr at run time), U
+// vectors a thread. The block's first vector is divided by the row width
+// once; each item's row follows by a 32-bit division (shifts for VPR 1, 2).
+template <typename V, int VPR, int U>
+__global__ void __launch_bounds__(THREADS)
+gather_wide_kernel(const V* __restrict__ table, const int* __restrict__ idx, V* __restrict__ out,
+                   long long n_rows, long long n_vecs, int vpr_rt) {
+  const unsigned vpr = VPR ? VPR : vpr_rt;
+  const long long b0 = (long long)blockIdx.x * (THREADS * U);
+  const long long row0 = b0 / vpr;
+  const unsigned c0 = (unsigned)(b0 - row0 * vpr);
+  int r[U];
+  unsigned c[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const unsigned local = c0 + k * THREADS + threadIdx.x, dr = local / vpr;
+    c[k] = local - dr * vpr;
+    if (b0 + k * THREADS + threadIdx.x < n_vecs) r[k] = load_once(idx + row0 + dr);
+  }
+  bool bad = false;
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (b0 + k * THREADS + threadIdx.x < n_vecs) bad |= r[k] < 0 || (long long)r[k] >= n_rows;
+  if (bad) __trap();
+  const uint64_t pol = table_policy();
+  V got[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (b0 + k * THREADS + threadIdx.x < n_vecs)
+      got[k] = load_table(table + (long long)r[k] * vpr + c[k], pol);
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (b0 + k * THREADS + threadIdx.x < n_vecs)
+      store_once(out + b0 + k * THREADS + threadIdx.x, got[k]);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -105,11 +316,6 @@ constexpr bool AGGREGATE = true;
 constexpr bool VECTOR_RED = true;
 constexpr int MAX_LANES_PER_ROW = 4;  // 1: a lane sends every chunk of its own row
 
-template <int B> struct VecOf;  // an aligned vector of B bytes
-template <> struct VecOf<16> { using type = uint4; };
-template <> struct VecOf<8> { using type = uint2; };
-template <> struct VecOf<4> { using type = uint32_t; };
-template <> struct VecOf<2> { using type = uint16_t; };
 
 // CW elements of type T at p (aligned to CW * sizeof(T) bytes, at most 16)
 // as floats, read once (streaming); zeros where !valid.
@@ -255,12 +461,48 @@ int blocks_for(long long work) {
 }
 
 template <typename Vec>
-void launch_gather(const void* table, const int* idx, void* out, long long n_rows, int n,
-                   int row_bytes, cudaStream_t stream) {
+void launch_gather_simple(const void* table, const int* idx, void* out, long long n_rows, int n,
+                          int row_bytes, cudaStream_t stream) {
   const int vpr = row_bytes / (int)sizeof(Vec);
   const long long n_vecs = (long long)n * vpr;
   gather_kernel<Vec><<<blocks_for(n_vecs), THREADS, 0, stream>>>(
       static_cast<const Vec*>(table), idx, static_cast<Vec*>(out), n_rows, n_vecs, vpr);
+}
+
+constexpr long long MAX_BLOCKS = 0x7fffffffLL;
+
+// Rows of RB = 2, 4 or 8 bytes: ROWS a thread, as vectors of up to 16 bytes;
+// the indices as vectors too where idx is aligned to them.
+template <int RB>
+int launch_narrow(const void* table, const int* idx, void* out, long long n_rows, int n,
+                  cudaStream_t s) {
+  constexpr int VB = RB * ROWS < 16 ? RB * ROWS : 16, RPV = VB / RB, U = ROWS / RPV;
+  constexpr int IDX_ALIGN = 4 * RPV < 16 ? 4 * RPV : 16;
+  const long long n_vecs = ((long long)n + RPV - 1) / RPV;
+  const long long blocks = (n_vecs + THREADS * U - 1) / (THREADS * U);
+  if (blocks > MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+  const auto* t = static_cast<const typename VecOf<RB>::type*>(table);
+  if (reinterpret_cast<uintptr_t>(idx) % IDX_ALIGN == 0)
+    gather_narrow_kernel<RB, RPV, U, true><<<(unsigned)blocks, THREADS, 0, s>>>(t, idx, out,
+                                                                                n_rows, n);
+  else
+    gather_narrow_kernel<RB, RPV, U, false><<<(unsigned)blocks, THREADS, 0, s>>>(t, idx, out,
+                                                                                 n_rows, n);
+  return 0;
+}
+
+// Any other row: vectors of V (the widest that divides the row), WIDE_VECS a
+// thread; VPR of them a row (0: at run time).
+template <typename V, int VPR>
+int launch_wide(const void* table, const int* idx, void* out, long long n_rows, int n,
+                int row_bytes, cudaStream_t s) {
+  const int vpr = row_bytes / (int)sizeof(V);
+  const long long n_vecs = (long long)n * vpr;
+  const long long blocks = (n_vecs + THREADS * WIDE_VECS - 1) / (THREADS * WIDE_VECS);
+  if (blocks > MAX_BLOCKS) return (int)cudaErrorInvalidValue;
+  gather_wide_kernel<V, VPR, WIDE_VECS><<<(unsigned)blocks, THREADS, 0, s>>>(
+      static_cast<const V*>(table), idx, static_cast<V*>(out), n_rows, n_vecs, vpr);
+  return 0;
 }
 
 template <typename T, int CW, int P>
@@ -305,21 +547,48 @@ int scatter_part(int part, const int* idx, const void* cot, float* acc, void* ou
 }  // namespace
 
 // table [n_rows, row_bytes] (any dtype), idx [n] int32 -> out [n, row_bytes].
-// row_bytes must be a multiple of 2; table and out aligned to 16 bytes.
-// Returns the CUDA error of the launch (0 on success), or cudaErrorInvalidValue.
+// row_bytes must be a multiple of 2; table and out aligned to 16 bytes, idx
+// to 4. Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue.
 extern "C" int launch_gather_rows(const void* table, const int* idx, void* out,
                                   long long n_rows, int n, int row_bytes, void* stream) {
   if (n < 0 || row_bytes <= 0 || row_bytes % 2) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (row_bytes) {
+    case 2: err = launch_narrow<2>(table, idx, out, n_rows, n, s); break;
+    case 4: err = launch_narrow<4>(table, idx, out, n_rows, n, s); break;
+    case 8: err = launch_narrow<8>(table, idx, out, n_rows, n, s); break;
+    case 16: err = launch_wide<uint4, 1>(table, idx, out, n_rows, n, row_bytes, s); break;
+    case 32: err = launch_wide<uint4, 2>(table, idx, out, n_rows, n, row_bytes, s); break;
+    default:
+      if (row_bytes % 16 == 0)
+        err = launch_wide<uint4, 0>(table, idx, out, n_rows, n, row_bytes, s);
+      else if (row_bytes % 8 == 0)
+        err = launch_wide<uint2, 0>(table, idx, out, n_rows, n, row_bytes, s);
+      else if (row_bytes % 4 == 0)
+        err = launch_wide<uint32_t, 0>(table, idx, out, n_rows, n, row_bytes, s);
+      else
+        err = launch_wide<uint16_t, 0>(table, idx, out, n_rows, n, row_bytes, s);
+  }
+  return err ? err : (int)cudaGetLastError();
+}
+
+// The previous gather, for comparison: the same arguments and result.
+extern "C" int launch_gather_rows_simple(const void* table, const int* idx, void* out,
+                                         long long n_rows, int n, int row_bytes, void* stream) {
+  if (n < 0 || row_bytes <= 0 || row_bytes % 2) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (row_bytes % 16 == 0)
-    launch_gather<uint4>(table, idx, out, n_rows, n, row_bytes, s);
+    launch_gather_simple<uint4>(table, idx, out, n_rows, n, row_bytes, s);
   else if (row_bytes % 8 == 0)
-    launch_gather<uint2>(table, idx, out, n_rows, n, row_bytes, s);
+    launch_gather_simple<uint2>(table, idx, out, n_rows, n, row_bytes, s);
   else if (row_bytes % 4 == 0)
-    launch_gather<uint32_t>(table, idx, out, n_rows, n, row_bytes, s);
+    launch_gather_simple<uint32_t>(table, idx, out, n_rows, n, row_bytes, s);
   else
-    launch_gather<uint16_t>(table, idx, out, n_rows, n, row_bytes, s);
+    launch_gather_simple<uint16_t>(table, idx, out, n_rows, n, row_bytes, s);
   return (int)cudaGetLastError();
 }
 

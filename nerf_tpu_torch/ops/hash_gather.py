@@ -4,8 +4,11 @@
 ``gather_rows(table, idx)`` is ``table[idx]`` for a 2D bf16 or float32
 table and int32 indices: on CUDA tensors it launches the kernel of
 ``csrc/hash_gather.cu`` (the port of the Pallas ``_gather_kernel``,
-``nerf_tpu/ops/hash_gather.py:45``), on CPU tensors it runs
-``gather_rows_plain``. ``scatter_add_rows(idx, cot, n_rows)`` is its
+``nerf_tpu/ops/hash_gather.py:45``; several rows a thread, streaming cache
+hints, the table kept in L2), on CPU tensors it runs ``gather_rows_plain``.
+``gather_rows_simple`` launches the previous kernel (one vector a thread),
+kept for comparison; ``gather_bytes`` counts the bytes its bound and its
+sector-grain floor need. ``scatter_add_rows(idx, cot, n_rows)`` is its
 transpose, the table's gradient: the kernel sums runs of equal indices
 within a warp in registers, adds each run's sum into a float32 buffer with
 vector reductions and rounds once to the cotangent's dtype;
@@ -137,21 +140,59 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lie in [0, R); the kernel traps on any other."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
-    _check(idx, table, "gather_rows")
-    n = idx.shape[0]
-    build.check_cuda("table", table, table.dtype, align=16)
-    build.check_cuda("idx", idx, torch.int32, (n,))
-    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
-    rc = _lib().launch_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                   table.shape[0], n, table.shape[1] * table.element_size(),
-                                   torch.cuda.current_stream(table.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
+    out = _gather(_lib().launch_gather_rows, table, idx)
     gather_rows.launches += 1
     return out
 
 
 gather_rows.launches = 0
+
+
+def gather_rows_simple(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The previous gather kernel (one vector a thread in a grid-stride
+    loop, ``launch_gather_rows_simple``), CUDA tensors only. No path of the
+    port calls it: it is the yardstick that the GPU tests and
+    ``chip_smoke.py`` hold ``gather_rows`` against."""
+    return _gather(_lib().launch_gather_rows_simple, table, idx)
+
+
+def _gather(fn, table, idx):
+    _check(idx, table, "gather_rows")
+    n = idx.shape[0]
+    build.check_cuda("table", table, table.dtype, align=16)
+    build.check_cuda("idx", idx, torch.int32, (n,))
+    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
+    rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n,
+            table.shape[1] * table.element_size(),
+            torch.cuda.current_stream(table.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
+    return out
+
+
+SECTOR = 32  # bytes: the unit in which L2 and device memory move data
+
+
+def gather_bytes(idx: torch.Tensor, row_bytes: int):
+    """(bound bytes, sector bytes) of ``gather_rows`` on idx [N] with rows of
+    row_bytes. The bound's: each index read once (4 N), each distinct row
+    once, each output row written once (N row_bytes). The sector floor: the
+    same at 32-byte grain, indices and output as whole sectors, the table as
+    each distinct 32-byte sector that a gathered row touches once (the table
+    taken to start on a sector)."""
+    n = idx.shape[0]
+    rows = torch.unique(idx.long())
+    bound = 4 * n + rows.numel() * row_bytes + n * row_bytes
+    first = rows * row_bytes // SECTOR
+    last = (rows * row_bytes + row_bytes - 1) // SECTOR
+    span = (row_bytes + SECTOR - 1) // SECTOR + 1  # the most sectors one row touches
+    sec = first[:, None] + torch.arange(span, device=idx.device)
+    sectors = torch.unique(sec[sec <= last[:, None]]).numel()
+    return bound, _whole_sectors(4 * n) + sectors * SECTOR + _whole_sectors(n * row_bytes)
+
+
+def _whole_sectors(nbytes: int) -> int:
+    return -(-nbytes // SECTOR) * SECTOR
 
 
 def scatter_add_rows(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -201,8 +242,9 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a built ``csrc/hash_gather.cu``'s exports."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.launch_gather_rows.argtypes = [p, p, p, i64, i32, i32, p]
-    lib.launch_gather_rows.restype = i32
+    for fn in (lib.launch_gather_rows, lib.launch_gather_rows_simple):
+        fn.argtypes = [p, p, p, i64, i32, i32, p]
+        fn.restype = i32
     for fn in (lib.launch_scatter_add_rows, lib.launch_scatter_add_rows_atomic):
         fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
         fn.restype = i32

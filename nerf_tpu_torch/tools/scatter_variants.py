@@ -75,9 +75,10 @@ def index_mix(kind: str, n: int, n_rows: int, gen):
     return idx.to(torch.int32).contiguous()
 
 
-def ray_batch_rows(n_rays: int, n_samples: int, dev, seed: int = 0):
-    """(table shape, idx [16 n_rays n_samples] int32): the cellpack rows the
-    hash encoder reads for a batch of rays through the scene, level-major."""
+def ray_batch_rows(n_rays: int, n_samples: int, dev, seed: int = 0, layout: str = "cellpack"):
+    """(table shape, idx int32): the rows the hash encoder reads for a batch
+    of rays through the scene, level-major: 16 n_rays n_samples cellpack
+    rows, or 8 times as many corner rows."""
     import torch
 
     from ..models.hashgrid import hashgrid_index, level_resolutions, table_shape
@@ -90,8 +91,8 @@ def ray_batch_rows(n_rays: int, n_samples: int, dev, seed: int = 0):
     z = torch.sort(torch.rand((n_rays, n_samples), generator=gen, device=dev) * 4.0 + 2.0,
                    -1).values
     pts = (o[:, None] + z[..., None] * d[:, None]).reshape(-1, 3)
-    shape = table_shape(16, 2, 19, "cellpack")
-    return shape, hashgrid_index(shape, pts, level_resolutions(), layout="cellpack")[0]
+    shape = table_shape(16, 2, 19, layout)
+    return shape, hashgrid_index(shape, pts, level_resolutions(), layout=layout)[0]
 
 
 def _time_one(name: str, so: str, n_rays: int, n_samples: int, reps: int) -> None:

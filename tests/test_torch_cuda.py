@@ -31,7 +31,12 @@ Tolerances (as chip_smoke.py states them):
   backward; its recomputed forward, two launches, its mask bits and a
   prefix's input gradients inside a larger launch: exact; one weight-gradient
   product against torch.matmul in float32: within 2^-14 sum |x g|;
-- hash-table row gather (B4): exact; its scatter-add: per element within
+- hash-table row gather (B4): exact against the plain version and the
+  previous kernel (``gather_rows_simple``) for rows of 2 to 32 bytes (and
+  6, 12), bf16 and float32, at tails that are not whole vectors, on index
+  views only 4-byte aligned and on heavy duplicates; an out-of-range index
+  raises at the next synchronisation (in a process of its own: the trap
+  ends the process's CUDA context); its scatter-add: per element within
   ``hash_gather.scatter_add_tolerance`` of the plain version (two float32
   sums of the same terms in other orders, each rounded once to bf16; the
   kernel's atomics make its order change from run to run), and of the
@@ -534,17 +539,67 @@ def _hash_rows(cuda, n_rows, width, dtype, n, seed):
 @pytest.mark.parametrize("n_rows,width,dtype", [
     (16 * 65536, 16, torch.bfloat16),  # cellpack rows, 32 B
     (16 * 2**19, 2, torch.bfloat16),  # corner rows, 4 B
+    (77, 1, torch.bfloat16),  # 2 B
+    (4096, 4, torch.bfloat16),  # 8 B
+    (4096, 8, torch.bfloat16),  # 16 B
+    (4096, 1, torch.float32),  # 4 B
     (4096, 2, torch.float32),  # 8 B
-    (1000, 3, torch.float32),  # 12 B: 4-byte words
-    (77, 1, torch.bfloat16)])  # 2 B
-@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
-def test_gather_kernel_matches_plain(cuda, n_rows, width, dtype, n):
-    table, idx = _hash_rows(cuda, n_rows, width, dtype, n, n)
+    (4096, 4, torch.float32),  # 16 B
+    (4096, 8, torch.float32),  # 32 B
+    (1000, 3, torch.bfloat16),  # 6 B: 2-byte pieces
+    (1000, 3, torch.float32)])  # 12 B: 4-byte pieces
+@pytest.mark.parametrize("n", [1, 7, 1000, (1 << 20) + 3])  # the last: whole threads plus 3
+@pytest.mark.parametrize("kind", ["contiguous", "view", "one_row"])
+def test_gather_kernel_matches_plain(cuda, n_rows, width, dtype, n, kind):
+    table, idx = _hash_rows(cuda, n_rows, width, dtype, n + 1, n)
+    if kind == "view":  # a view 4 bytes into a larger tensor
+        idx = idx[1:]
+        assert idx.data_ptr() % 8 == 4 and idx.is_contiguous()
+    else:
+        idx = idx[:n].clone()
+        if kind == "one_row":
+            idx.fill_(n_rows - 1)
     before = hash_gather.gather_rows.launches
     got = hash_gather.gather_rows(table, idx)
+    old = hash_gather.gather_rows_simple(table, idx)
     torch.cuda.synchronize()
     assert hash_gather.gather_rows.launches == before + 1
     assert torch.equal(got, hash_gather.gather_rows_plain(table, idx))
+    assert torch.equal(old, hash_gather.gather_rows_plain(table, idx))
+
+
+_OUT_OF_RANGE = """
+import sys, torch
+sys.path.insert(0, {root!r})
+from nerf_tpu_torch.ops import hash_gather
+table = torch.zeros(({n_rows}, {width}), dtype=torch.bfloat16, device="cuda")
+idx = torch.zeros({n}, dtype=torch.int32, device="cuda")
+idx[{at}] = {bad}
+fn = getattr(hash_gather, {fn!r})
+try:
+    fn(table, idx)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", ["gather_rows", "gather_rows_simple"])
+@pytest.mark.parametrize("width,n,at,bad", [
+    (2, 100_000, 50_000, 4096),  # 4-byte rows, inside a whole vector
+    (2, 100_003, 100_001, 4096),  # 4-byte rows, in the last short vector
+    (2, 100_000, 7, -1),  # a negative index
+    (16, 100_000, 99_999, 1 << 30)])  # 32-byte rows
+def test_gather_kernel_raises_on_an_index_out_of_range(cuda, fn, width, n, at, bad):
+    import subprocess
+    import sys
+
+    code = _OUT_OF_RANGE.format(root=ROOT, n_rows=4096, width=width, n=n, at=at, bad=bad,
+                                fn=fn)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT)
+    assert "raised:" in r.stdout, (r.stdout, r.stderr[-2000:])
 
 
 @pytest.mark.cuda

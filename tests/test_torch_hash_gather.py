@@ -107,3 +107,35 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
     grad = hash_gather.scatter_add_rows(idx, torch.ones((3, 2)), 6)
     assert grad[5].tolist() == [2, 2] and grad[0].tolist() == [1, 1] and float(grad.sum()) == 6
     assert (hash_gather.gather_rows.launches, hash_gather.scatter_add_rows.launches) == before
+
+
+def _bytes_brute_force(idx, row_bytes):
+    """gather_bytes by enumeration: every byte of every distinct row, and
+    the 32-byte sector each falls in."""
+    rows = set(int(r) for r in idx)
+    sectors = {(r * row_bytes + b) // 32 for r in rows for b in range(row_bytes)}
+    n = len(idx)
+    whole = lambda b: -(-b // 32) * 32  # noqa: E731
+    return (4 * n + len(rows) * row_bytes + n * row_bytes,
+            whole(4 * n) + 32 * len(sectors) + whole(n * row_bytes))
+
+
+@pytest.mark.parametrize("idx,row_bytes,want", [
+    ([5, 5, 5, 5], 4, (4 * 4 + 4 + 4 * 4, 32 + 32 + 32)),  # one row, four times
+    ([0, 1, 7, 8, 8, 3], 4, (24 + 5 * 4 + 24, 32 + 2 * 32 + 32)),  # rows 0-7 share a sector
+    ([0, 15, 16, 31, 16], 2, (20 + 4 * 2 + 10, 32 + 2 * 32 + 32)),  # 2-byte rows
+    ([3, 1, 3, 2, 0], 32, (20 + 4 * 32 + 160, 32 + 4 * 32 + 160)),  # 32-byte rows: a sector each
+    ([2, 5], 12, (8 + 2 * 12 + 24, 32 + 3 * 32 + 32)),  # 12-byte rows across sector edges
+])
+def test_gather_bytes_counts_rows_and_sectors(idx, row_bytes, want):
+    got = hash_gather.gather_bytes(torch.tensor(idx, dtype=torch.int32), row_bytes)
+    assert got == want == _bytes_brute_force(idx, row_bytes)
+
+
+@pytest.mark.parametrize("row_bytes", [2, 4, 6, 8, 12, 16, 32, 48])
+def test_gather_bytes_matches_brute_force_on_random_rows(row_bytes):
+    rng = np.random.default_rng(row_bytes)
+    idx = np.concatenate([rng.integers(0, 8, 300), rng.integers(0, 5000, 700)])
+    rng.shuffle(idx)
+    got = hash_gather.gather_bytes(torch.from_numpy(idx.astype(np.int32)), row_bytes)
+    assert got == _bytes_brute_force(idx, row_bytes)

@@ -29,7 +29,7 @@ from nerf_tpu.ops.integrate import integrate_pallas
 
 from nerf_tpu_torch.ops import hash_gather
 from nerf_tpu_torch.ops import integrate as tint
-from nerf_tpu_torch.tools import integrate_variants, scatter_variants, variants
+from nerf_tpu_torch.tools import gather_variants, integrate_variants, scatter_variants, variants
 
 U = 2.0 ** -24
 
@@ -42,6 +42,53 @@ def test_scatter_variants_apply_to_the_kernel_source(name):
     text = variants.variant_source(scatter_variants.MAIN, scatter_variants.VARIANTS, name)
     assert (text == src) == (name == "kernel")
     assert (len(text) < len(src)) == (name in ("no_memset", "no_round"))
+
+
+@pytest.mark.parametrize("name", list(gather_variants.VARIANTS))
+def test_gather_variants_apply_to_the_kernel_source(name):
+    """Every variant of tools/gather_variants.py still finds the switches it
+    changes in csrc/hash_gather.cu, and changes only switches."""
+    src = gather_variants.MAIN.read_text()
+    text = variants.variant_source(gather_variants.MAIN, gather_variants.VARIANTS, name)
+    assert (text == src) == (name in ("kernel", "simple"))
+    assert text.count("constexpr") == src.count("constexpr")
+    assert len(text.splitlines()) == len(src.splitlines())
+
+
+@pytest.mark.parametrize("etype,dim", [("cuda_hashgrid_4d", 4), ("hashgrid", 3)])
+def test_gather_variants_encoder_rows_are_the_encoders_rows(etype, dim):
+    """The rows tools/gather_variants.py times for an encoder are the ones
+    its forward gathers: 16 levels x 2^dim corners a point, level-major,
+    inside the table."""
+    table, idx = gather_variants.encoder_rows(etype, "cpu", n_points=50)
+    assert table.shape == (16 * 2 ** 19, 2) and idx.dtype == torch.int32
+    assert idx.shape == (16 * 2 ** dim * 50,)
+    assert int(idx.min()) >= 0 and int(idx.max()) < table.shape[0]
+    level = idx.long() // 2 ** 19
+    assert bool((level == torch.arange(16).repeat_interleave(2 ** dim * 50)).all())
+
+
+@pytest.mark.parametrize("row_bytes,lane_rows", [(4, 1), (4, 4), (2, 8), (8, 2), (16, 1)])
+def test_warp_sectors_counts_each_instructions_distinct_sectors(row_bytes, lane_rows):
+    """tools/gather_variants.py's sector requests a row against a loop over
+    the warps' instructions, on rows with heavy duplicates and neighbours."""
+    rng = np.random.default_rng(row_bytes * lane_rows)
+    idx = rng.integers(0, 300, 32 * lane_rows * 7 + 5) // rng.integers(1, 4)
+    got = gather_variants.warp_sectors(torch.from_numpy(idx.astype(np.int32)), row_bytes,
+                                       lane_rows)
+    m = len(idx) // (32 * lane_rows) * (32 * lane_rows)
+    groups = idx[:m].reshape(-1, 32, lane_rows)
+    want = sum(len({int(r) * row_bytes // 32 for r in g[:, e]})
+               for g in groups for e in range(lane_rows))
+    assert got == want / m
+
+
+@pytest.mark.parametrize("layout,per_sample", [("cellpack", 16), ("corner", 128)])
+def test_ray_batch_rows_in_both_layouts(layout, per_sample):
+    shape, idx = scatter_variants.ray_batch_rows(3, 5, "cpu", layout=layout)
+    assert idx.shape == (3 * 5 * per_sample,) and idx.dtype == torch.int32
+    assert int(idx.min()) >= 0 and int(idx.max()) < shape[0] * shape[1]
+    assert shape[2] * 2 == (32 if layout == "cellpack" else 4)
 
 
 @pytest.mark.parametrize("name", list(integrate_variants.VARIANTS))
