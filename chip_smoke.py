@@ -267,7 +267,17 @@ Phases, each printed with its elapsed seconds:
  42. a COLMAP model of phase 15's train views through python -m
      nerf_tpu_torch.colmap2nerf (poses within 1e-6 of the views' own after
      its recentring and scaling), read by the Blender loader, and
-     COLMAP_STEPS train steps on it from a fresh init.
+     COLMAP_STEPS train steps on it from a fresh init;
+ 43. the helpers on the card against the same functions on the CPU:
+     get_near_far on the 640,000 rays of one 800x800 lego view against the
+     scene's box (the ESS grid's [-2, 2]^3, which every ray of the view
+     hits) and its central half (which some miss): hits equal, near and far
+     within 1e-6; heatmap_nms on a [4, 80, 128, 128] float32 heatmap
+     without ties, in [0, 1) and shifted negative, then topk (K = 40) and
+     gather_feat on it (equal); a torch.profiler trace
+     (utils/profiling.trace) of one warm 200x200 lego render, whose Chrome
+     trace must name B1's and B3's kernels; and memory_stats(), which must
+     report the card's bytes in use and peak.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -3845,6 +3855,104 @@ def colmap_phase(root, work, scene_dir):
     return {"seconds": secs}
 
 
+HELPER_HEAT = (4, 80, 128, 128)  # phase 43's heatmap: batch, classes, height, width
+HELPER_TOPK = 40
+NEAR_FAR_ATOL = 1e-6
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def helpers_phase(dev, smi, service):
+    """Phase 43: the tensor helpers on the card against the CPU, the
+    profiler's trace of a lego request, and memory_stats."""
+    import glob
+
+    import numpy as np
+    import torch
+    from nerf_tpu_torch.render.rays import image_rays
+    from nerf_tpu_torch.serve import look_at_pose
+    from nerf_tpu_torch.utils import data_utils, profiling, ray_utils
+
+    t0 = time.perf_counter()
+    pose = torch.as_tensor(look_at_pose(THETA0, PHI, RADIUS), device=dev)
+    rays_o, rays_d = image_rays(SCENE, SCENE, scene_K(SCENE, dev), pose)
+    grid = service.grid  # the lego scene's AABB, [-2, 2]^3, and its central half
+    nf_err, hits = 0.0, []
+    for scale in (1.0, 0.5):
+        box = (grid.bbox_min * scale, grid.bbox_max * scale)
+        got = ray_utils.get_near_far(rays_o, rays_d, *box)
+        cpu_args = (rays_o.cpu(), rays_d.cpu(), box[0].cpu(), box[1].cpu())
+        want = ray_utils.get_near_far(*cpu_args)
+        check(got[0].device.type == "cuda" and torch.equal(got[2].cpu(), want[2]),
+              "get_near_far: the card's hits differ from the CPU's")
+        nf_err = max([nf_err] + [float((g.cpu() - w).abs().max())
+                                 for g, w in zip(got[:2], want[:2])])
+        hits.append(int(got[2].sum()))
+    check(nf_err <= NEAR_FAR_ATOL, f"get_near_far: near/far {nf_err} from the CPU's")
+    check(0 < hits[1] < rays_o.shape[0], f"the central half's hits {hits[1]}: no misses")
+    nf_ms = time_ms(lambda: ray_utils.get_near_far(rays_o, rays_d, *box), 10)
+    nf_cpu_ms = _host_ms(lambda: ray_utils.get_near_far(*cpu_args))
+
+    n = int(np.prod(HELPER_HEAT))
+    heat = torch.from_numpy((np.random.RandomState(43).permutation(n).reshape(HELPER_HEAT)
+                             .astype(np.float32) + 0.5) / n)
+    check(len(torch.unique(heat)) == n, "the heatmap has ties")
+    heat_d = heat.to(dev)
+    for h, hd in ((heat - 0.5, heat_d - 0.5), (heat, heat_d)):  # negative, then in [0, 1)
+        nms = data_utils.heatmap_nms(h)
+        nms_d = data_utils.heatmap_nms(hd)
+        check(torch.equal(nms_d.cpu(), nms), "heatmap_nms: the card differs from the CPU")
+    tk, tk_d = data_utils.topk(nms, HELPER_TOPK), data_utils.topk(nms_d, HELPER_TOPK)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(tk_d, tk)),
+          "topk: the card differs from the CPU")
+    feat = nms.reshape(HELPER_HEAT[0], HELPER_HEAT[1], -1).transpose(1, 2).contiguous()
+    feat_d = feat.to(dev)
+    g = data_utils.gather_feat(feat, tk[1])  # each peak's row: its class's column is its score
+    check(torch.equal(data_utils.gather_feat(feat_d, tk_d[1]).cpu(), g)
+          and torch.equal(g.gather(2, tk[2].long().unsqueeze(-1))[..., 0], tk[0]),
+          "gather_feat: the card differs from the CPU")
+    det_ms = time_ms(lambda: data_utils.topk(data_utils.heatmap_nms(heat_d), HELPER_TOPK), 10)
+    det_cpu_ms = _host_ms(lambda: data_utils.topk(data_utils.heatmap_nms(heat), HELPER_TOPK), 1)
+
+    service.render_png(THETA0, PHI, RADIUS)  # warm
+    log_dir = tempfile.mkdtemp(prefix="trace-")
+    try:
+        t = time.perf_counter()
+        with profiling.trace(log_dir):
+            profiling.sync(service.render(THETA0, PHI, RADIUS))
+        trace_s = time.perf_counter() - t
+        paths = glob.glob(os.path.join(log_dir, "*.json"))
+        check(len(paths) == 1, f"trace: {paths}")
+        with open(paths[0]) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    kern = [e["name"] for e in events if e.get("cat") == "kernel"]
+    b1 = sum("fused_nerf" in k for k in kern)
+    b3 = sum("integrate" in k for k in kern)
+    check(b1 > 0 and b3 > 0, f"the trace names no B1 ({b1}) or no B3 ({b3}) kernel")
+    stats = profiling.memory_stats()
+    mem = stats.get(f"cuda:{torch.cuda.current_device()}", {})
+    check(mem.get("bytes_in_use", 0) > 0
+          and mem.get("peak_bytes_in_use", 0) >= mem["bytes_in_use"],
+          f"memory_stats: {stats}")
+    secs = time.perf_counter() - t0
+    log(f"helpers on {smi}: get_near_far on {rays_o.shape[0]} rays {nf_ms:.4f} ms on the card "
+        f"({nf_cpu_ms:.2f} ms on the CPU; hits equal, {hits[0]} in the scene's box, {hits[1]} "
+        f"in its central half; near/far "
+        f"within {nf_err:.3g}); heatmap_nms + topk on {list(HELPER_HEAT)} {det_ms:.4f} ms "
+        f"({det_cpu_ms:.2f} ms on the CPU; equal); a {SIZE}x{SIZE} request traced in "
+        f"{trace_s:.3f} s, {len(kern)} kernel events, B1 {b1}, B3 {b3}; memory_stats "
+        f"{mem['bytes_in_use'] / 2**30:.3f} GiB in use, peak {mem['peak_bytes_in_use'] / 2**30:.3f}"
+        f" GiB; the phase {secs:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4113,7 +4221,9 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
         f"launches, lattice {mesh['lattice_ms']:.2f} ms); ported checkpoint "
         f"{ported['request_ms']:.2f} ms a request, equal to the committed model's frame; COLMAP "
         f"scene {colmap_run['seconds']:.2f} s")
-    log("phase 43: done")
+    log("phase 43: the helpers, the profiler's trace and memory_stats on the card")
+    helpers_phase(dev, smi, service)
+    log("phase 44: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
              "sector_floor_ms", "encoder_launches",

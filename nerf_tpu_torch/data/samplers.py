@@ -4,7 +4,7 @@ A numpy copy: the same index sequences as the JAX package's for the same
 seed. ``DistributedEpochSampler`` (an epoch-seeded shuffle, one shard a
 rank, padded by wrap-around), ``IterationBasedSampler`` (a fixed number of
 indices, epoch after epoch) and ``ImageSizeBatchSampler`` (one random crop
-size a batch).
+size a batch); and ``make_dataset_catalog``, the dataset roots by name.
 """
 from __future__ import annotations
 
@@ -127,3 +127,12 @@ class ImageSizeBatchSampler:
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
+
+
+def make_dataset_catalog() -> dict:
+    """The static dataset-root catalog: dataset name -> its root."""
+    return {
+        "nerf_synthetic": "data/nerf_synthetic",
+        "llff": "data/nerf_llff_data",
+        "colmap": "data/colmap",
+    }

@@ -97,6 +97,11 @@ Tolerances (as chip_smoke.py states them):
   the CPU from the same state and pixels, with TF32 allowed in the process:
   loss within 1e-5 relative, every gradient leaf within 1e-5 of its largest
   |value| (its products run in full float32 whatever the setting).
+- the tensor helpers (utils/ray_utils, utils/data_utils) on the card
+  against the same functions on the CPU: get_near_far's hits equal, near
+  and far within 1e-6; heatmap_nms, topk and gather_feat equal (values
+  without ties); memory_stats reports the card's bytes; a trace of a
+  render names B1's and B3's kernels.
 """
 import dataclasses
 import math
@@ -1277,3 +1282,41 @@ def test_img_fit_step_on_the_card_matches_the_cpu(cuda):
     assert results[0][0] == pytest.approx(results[1][0], rel=1e-5)
     for a, b in zip(results[0][1], results[1][1]):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()) + 1e-12
+
+
+@pytest.mark.cuda
+def test_tensor_helpers_on_the_card_match_the_cpu(cuda, tmp_path):
+    import glob
+    import json
+
+    from nerf_tpu_torch.utils import data_utils, profiling, ray_utils
+
+    rng = np.random.default_rng(11)
+    o = torch.from_numpy(rng.uniform(-4, 4, (65536, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(65536, 3)).astype(np.float32))
+    d[:1024, 0] = 0.0
+    box = ([-1.5, -1.5, -1.5], [1.5, 1.5, 1.5])
+    want = ray_utils.get_near_far(o, d, *box)
+    got = ray_utils.get_near_far(o.to(cuda), d.to(cuda), *box)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[2].cpu(), want[2])
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-6
+    heat = torch.from_numpy((rng.permutation(4 * 8 * 32 * 32).reshape(4, 8, 32, 32) + 0.5)
+                            .astype(np.float32) / 32768 - 0.25)
+    nms = data_utils.heatmap_nms(heat.to(cuda))
+    assert torch.equal(nms.cpu(), data_utils.heatmap_nms(heat))
+    for g, w in zip(data_utils.topk(nms, 40), data_utils.topk(data_utils.heatmap_nms(heat), 40)):
+        assert torch.equal(g.cpu(), w)
+    stats = profiling.memory_stats()
+    assert stats["cuda:0"]["bytes_in_use"] > 0
+    assert stats["cuda:0"]["peak_bytes_in_use"] >= stats["cuda:0"]["bytes_in_use"]
+    service = RenderService(make_cfg(os.path.join(ROOT, "configs/nerf/lego.yaml"),
+                                     ["trained_model_dir", LEGO]), size=64, device=cuda)
+    service.render(0.5, 0.3, 4.0)
+    with profiling.trace(str(tmp_path)) as log_dir:
+        profiling.sync(service.render(0.5, 0.3, 4.0))
+    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
+    kernels = {e.get("name", "") for e in json.load(open(path))["traceEvents"]
+               if e.get("cat") == "kernel"}
+    assert any("fused_nerf" in n for n in kernels) and any("integrate" in n for n in kernels)

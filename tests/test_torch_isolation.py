@@ -123,16 +123,33 @@ def test_the_loader_mesh_checkpoint_and_colmap_slice_is_scanned(path):
     assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
 
 
+# the helpers' slice (data, image, mask and ray utilities, the profiling
+# hooks, the config's exp-name rules): each is found by the scan above
+HELPERS_SLICE = ["nerf_tpu_torch/utils/data_utils.py", "nerf_tpu_torch/utils/img_utils.py",
+                 "nerf_tpu_torch/utils/mask_utils.py", "nerf_tpu_torch/utils/ray_utils.py",
+                 "nerf_tpu_torch/utils/profiling.py", "nerf_tpu_torch/config.py",
+                 "nerf_tpu_torch/data/samplers.py"]
+
+
+@pytest.mark.parametrize("path", HELPERS_SLICE)
+def test_the_helpers_slice_is_scanned(path):
+    assert path in FILES
+    assert not [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+
+
 # image libraries: installed here, partly on the card's machine (cv2 and PIL,
-# not imageio); a module that tried one would run another path where it is
-# missing, so the data and model modules use the port's own codec and remap
-IMAGE_LIBS = ("cv2", "imageio", "PIL")
+# not imageio, not matplotlib); a module that tried one would run another
+# path where it is missing, so the data, model and helper modules use the
+# port's own codec, remap, resizes, polygon fill and colour map
+IMAGE_LIBS = ("cv2", "imageio", "PIL", "matplotlib")
 IMAGE_FREE = sorted(f for f in FILES if f.startswith(("nerf_tpu_torch/data/",
                                                       "nerf_tpu_torch/models/"))) + [
     "nerf_tpu_torch/train/img_fit_loop.py", "nerf_tpu_torch/utils/remap.py",
     "nerf_tpu_torch/utils/vis_utils.py", "nerf_tpu_torch/utils/png.py",
     "nerf_tpu_torch/native/__init__.py", "nerf_tpu_torch/utils/mesh.py",
-    "nerf_tpu_torch/utils/torch_port.py"] + sorted(
+    "nerf_tpu_torch/utils/torch_port.py", "nerf_tpu_torch/utils/data_utils.py",
+    "nerf_tpu_torch/utils/img_utils.py", "nerf_tpu_torch/utils/mask_utils.py",
+    "nerf_tpu_torch/utils/ray_utils.py"] + sorted(
     f for f in FILES if f.startswith("nerf_tpu_torch/utils/colmap"))
 
 
@@ -140,6 +157,7 @@ IMAGE_FREE = sorted(f for f in FILES if f.startswith(("nerf_tpu_torch/data/",
 def test_data_and_model_modules_import_no_image_library(path):
     assert "nerf_tpu_torch/data/light_stage.py" in IMAGE_FREE
     assert "nerf_tpu_torch/utils/colmap_export.py" in IMAGE_FREE
+    assert "nerf_tpu_torch/utils/img_utils.py" in IMAGE_FREE and "matplotlib" in IMAGE_LIBS
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in IMAGE_LIBS]
     assert not bad, f"{path} imports {bad}"
 
