@@ -601,7 +601,8 @@ def integrate_turns(label, raw, z, d, ert, act):
     outs = [torch.empty(shape, device=raw.device) for shape in ((nr, 3), (nr,), (nr,), (nr, s))]
     args = [t.data_ptr() for t in (raw, z, d, *outs)] + [nr, s, ert, int(act == "softplus")]
     lib = tint._lib()
-    calls = {"new": lambda: lib.launch_integrate(*args, torch.cuda.current_stream().cuda_stream),
+    calls = {"new": lambda: lib.launch_integrate(*args, None,  # no ERT counter
+                                                 torch.cuda.current_stream().cuda_stream),
              "old": lambda: lib.launch_integrate_warp(*args,
                                                       torch.cuda.current_stream().cuda_stream)}
     check(calls["new"]() == 0 and calls["old"]() == 0, "launch_integrate failed")

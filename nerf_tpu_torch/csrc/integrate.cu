@@ -34,6 +34,13 @@
 // launch_integrate_warp keeps the previous design (32 samples a round, a
 // scan and a round trip each) for comparison.
 //
+// Counting ERT's cut (a non-null ert_cut, while the program's spans are on):
+// each lane counts its samples whose weight ERT zeroes (T < ert, or the whole
+// chunk when it is skipped as done), a warp sum gives the ray's count (S
+// minus its first sample past the cut, as T only falls), and each block adds
+// its rays' counts to the counter with one atomic. A null counter launches
+// the kernel without any of it.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no PyTorch headers; bound with ctypes).
 
@@ -161,20 +168,20 @@ __device__ __forceinline__ void load_samples(Samples<K>& s, const float4* __rest
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// One warp per ray; lane l owns samples c0 + l K .. c0 + l K + K - 1 of each
-// chunk of 32 K samples. CHUNKED: more than one chunk, the next one's loads
-// issued before this one's math; otherwise the one chunk is the whole ray.
-template <int K, bool CHUNKED>
-__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-integrate_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
-                 const float* __restrict__ rays_d, float* __restrict__ rgb_map,
-                 float* __restrict__ depth, float* __restrict__ acc,
-                 float* __restrict__ weights, int N, int S, float ert, int softplus) {
+// Ray n's maps and weights, by its warp; lane l owns samples c0 + l K ..
+// c0 + l K + K - 1 of each chunk of 32 K samples. CHUNKED: more than one
+// chunk, the next one's loads issued before this one's math; otherwise the
+// one chunk is the whole ray. Returns the lane's count of samples past ERT's
+// cut when COUNT (else 0).
+template <int K, bool CHUNKED, bool COUNT>
+__device__ __forceinline__ unsigned composite_ray(
+    const float4* __restrict__ raw, const float* __restrict__ z,
+    const float* __restrict__ rays_d, float* __restrict__ rgb_map, float* __restrict__ depth,
+    float* __restrict__ acc, float* __restrict__ weights, long long n, int lane, int S,
+    float ert, int softplus) {
   constexpr int CH = 32 * K;
-  const long long n = (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (n >= N) return;  // whole warps leave together
   const long long row = n * S;
+  unsigned cut = 0;
 
   Samples<K> cur, nxt;
   load_samples<K>(cur, raw, z, row, lane * K, S);
@@ -191,7 +198,10 @@ integrate_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
     float w[K];
     if (done) {  // T < ert from here on: every weight is 0
 #pragma unroll
-      for (int j = 0; j < K; ++j) w[j] = 0.0f;
+      for (int j = 0; j < K; ++j) {
+        w[j] = 0.0f;
+        if (COUNT && first + j < S) ++cut;
+      }
     } else {
       // z after the lane's last sample: the next lane's first, or for lane
       // 31 the next chunk's first (unused past the ray's end)
@@ -233,7 +243,10 @@ integrate_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
       for (int j = 0; j < K; ++j) {
         const float T = expf(log_t);
         w[j] = alpha[j] * T;
-        if (ert > 0.0f && !(T >= ert)) w[j] = 0.0f;
+        if (ert > 0.0f && !(T >= ert)) {
+          w[j] = 0.0f;
+          if (COUNT && first + j < S) ++cut;
+        }
         r += w[j] * sigmoid(cur.q[j].x);
         g += w[j] * sigmoid(cur.q[j].y);
         b += w[j] * sigmoid(cur.q[j].z);
@@ -265,28 +278,80 @@ integrate_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
     depth[n] = dep;
     acc[n] = ac;
   }
+  return cut;
+}
+
+template <int K, bool CHUNKED>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+integrate_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
+                 const float* __restrict__ rays_d, float* __restrict__ rgb_map,
+                 float* __restrict__ depth, float* __restrict__ acc,
+                 float* __restrict__ weights, int N, int S, float ert, int softplus) {
+  const long long n = (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (n >= N) return;  // whole warps leave together
+  composite_ray<K, CHUNKED, false>(raw, z, rays_d, rgb_map, depth, acc, weights, n, lane, S,
+                                   ert, softplus);
+}
+
+// integrate_kernel that also adds the block's samples past ERT's cut to
+// *ert_cut: every warp reaches the block's barrier, those past N with none.
+template <int K, bool CHUNKED>
+__global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
+integrate_count_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
+                       const float* __restrict__ rays_d, float* __restrict__ rgb_map,
+                       float* __restrict__ depth, float* __restrict__ acc,
+                       float* __restrict__ weights, int N, int S, float ert, int softplus,
+                       unsigned long long* __restrict__ ert_cut) {
+  __shared__ unsigned warp_cut[WARPS_PER_BLOCK];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
+  unsigned cut = 0;
+  if (n < N)
+    cut = composite_ray<K, CHUNKED, true>(raw, z, rays_d, rgb_map, depth, acc, weights, n,
+                                          lane, S, ert, softplus);
+  cut = __reduce_add_sync(FULL, cut);
+  if (lane == 0) warp_cut[warp] = cut;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long block = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS_PER_BLOCK; ++w) block += warp_cut[w];
+    if (block) atomicAdd(ert_cut, block);
+  }
 }
 
 template <int K, bool CHUNKED>
 void launch(const void* raw, const void* z, const void* rays_d, void* rgb_map, void* depth,
-            void* acc, void* weights, int N, int S, float ert, int softplus, cudaStream_t s) {
+            void* acc, void* weights, int N, int S, float ert, int softplus, void* ert_cut,
+            cudaStream_t s) {
   const int blocks = (N + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  integrate_kernel<K, CHUNKED><<<blocks, WARPS_PER_BLOCK * 32, 0, s>>>(
-      (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
-      (float*)depth, (float*)acc, (float*)weights, N, S, ert, softplus);
+  if (ert_cut)
+    integrate_count_kernel<K, CHUNKED><<<blocks, WARPS_PER_BLOCK * 32, 0, s>>>(
+        (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
+        (float*)depth, (float*)acc, (float*)weights, N, S, ert, softplus,
+        (unsigned long long*)ert_cut);
+  else
+    integrate_kernel<K, CHUNKED><<<blocks, WARPS_PER_BLOCK * 32, 0, s>>>(
+        (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
+        (float*)depth, (float*)acc, (float*)weights, N, S, ert, softplus);
 }
 
 }  // namespace
 
 // raw: [N, S, 4] f32 (rgb_raw, sigma_raw), 16-byte aligned; z: [N, S];
 // rays_d: [N, 3]; outputs rgb_map [N, 3] (before the background), depth [N],
-// acc [N], weights [N, S]. ert <= 0 turns ERT off. Returns the CUDA error code.
+// acc [N], weights [N, S]. ert <= 0 turns ERT off. ert_cut: null, or an
+// int64 counter that the samples past ERT's cut are added to. Returns the
+// CUDA error code.
 extern "C" int launch_integrate(const void* raw, const void* z, const void* rays_d,
                                 void* rgb_map, void* depth, void* acc, void* weights,
-                                int N, int S, float ert, int softplus, void* stream) {
+                                int N, int S, float ert, int softplus, void* ert_cut,
+                                void* stream) {
   if (N <= 0 || S <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define NERF_INTEGRATE_ARGS raw, z, rays_d, rgb_map, depth, acc, weights, N, S, ert, softplus, s
+#define NERF_INTEGRATE_ARGS \
+  raw, z, rays_d, rgb_map, depth, acc, weights, N, S, ert, softplus, ert_cut, s
   const int k = UP_FRONT ? (S + 31) / 32 : MAX_K + 1;
   switch (k) {
     case 1: launch<1, false>(NERF_INTEGRATE_ARGS); break;

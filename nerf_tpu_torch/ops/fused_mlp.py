@@ -34,6 +34,7 @@ import torch
 
 from ..models.encoders import freq_bands
 from ..tree import tree_flatten, tree_unflatten
+from ..utils.profiling import span
 from . import build
 
 # packed kernel buffers (csrc/fused_mlp.cu reports the same sizes)
@@ -177,6 +178,7 @@ def unpack_bwd_rows(wbuf_t: torch.Tensor):
             for i in range(len(STREAM_LAYERS))]
 
 
+@span("mlp.pack")
 def repack_params(params: Dict[str, Any], xyz_freqs: int = 10, dir_freqs: int = 4,
                   weight_dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
     """JAX-layout MLP tree (weights [in, out], e.g. ``NeRFMLP.to_tree()``) ->

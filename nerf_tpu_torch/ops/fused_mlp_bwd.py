@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import build
 from .fused_mlp import BBUF_SIZE, WBUF_SIZE, WPACK_SIZE, _EMB_PAD, _emb_perm, _phases
 
@@ -800,6 +801,7 @@ def bind_f32(lib: ctypes.CDLL):
     return lib, sld, gld, pst
 
 
+@span("mlp.unpack_grads")
 def kgrads_to_param_grads(kgrads: Dict[str, torch.Tensor], params, xyz_freqs: int = 10,
                           dir_freqs: int = 4):
     """Kernel-layout gradients -> the standard MLP tree's layout (the inverse

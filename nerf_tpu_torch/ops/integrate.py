@@ -11,6 +11,12 @@ cumprod of ``render/composite.py``; both agree with it to float32 rounding.
 comparison; ``lane_transmittance`` repeats the kernel's order of sums in
 PyTorch for the CPU tests.
 
+While spans are on (``utils/profiling``: a torch profiler runs), ``integrate``
+passes the kernel a device counter of the samples whose weight early ray
+termination zeroes (``ert_cut_count``; one block's rays, one atomic add) and
+counts the samples it was given on the host (``b3.samples``); off, the
+kernel gets a null counter and counts nothing.
+
 ``composite_kernel`` is differentiable (the counterpart of ``nerf_tpu``'s
 ``_composite_pallas_diff``): its forward is ``integrate``, and its backward
 recomputes ``render/composite.py::composite`` under torch autograd, as the
@@ -27,6 +33,7 @@ from typing import Dict
 import torch
 
 from ..render.composite import composite, finish_maps
+from ..utils import profiling
 from . import build
 
 _LOG_EPS = -23.025850929940457  # log(1e-10)
@@ -145,13 +152,40 @@ def integrate(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     if raw.device.type == "cpu":
         return integrate_plain(raw, z_vals, rays_d, ert_threshold, white_bkgd,
                                sigma_activation)
+    cut = None
+    if profiling.enabled():
+        cut = _ert_cut_buffer(raw.device)
+        profiling.count("b3.samples", z_vals.numel())
     out = _launch(_lib().launch_integrate, raw, z_vals, rays_d, ert_threshold, white_bkgd,
-                  sigma_activation)
+                  sigma_activation, (None if cut is None else cut.data_ptr(),))
     integrate.launches += 1
     return out
 
 
 integrate.launches = 0
+
+_ert_cut: Dict[torch.device, torch.Tensor] = {}  # int64 [], one a device
+
+
+def _ert_cut_buffer(device: torch.device) -> torch.Tensor:
+    buf = _ert_cut.get(device)
+    if buf is None:
+        buf = _ert_cut[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return buf
+
+
+def ert_cut_count():
+    """The samples whose weight ERT zeroed in ``integrate``'s launches while
+    spans were on, summed over the devices (synchronises); None before the
+    first such launch."""
+    if not _ert_cut:
+        return None
+    return sum(int(buf.item()) for buf in _ert_cut.values())
+
+
+def ert_cut_reset() -> None:
+    for buf in _ert_cut.values():
+        buf.zero_()
 
 
 def integrate_warp(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
@@ -165,7 +199,7 @@ def integrate_warp(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor
                    sigma_activation)
 
 
-def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation):
+def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation, extra=()):
     if sigma_activation not in _ACTIVATIONS:
         raise ValueError(f"unknown sigma activation: {sigma_activation!r}")
     N, S = z_vals.shape
@@ -181,7 +215,7 @@ def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation
     weights = torch.empty((N, S), **kw)
     rc = fn(raw.data_ptr(), z_vals.data_ptr(), rays_d.data_ptr(), rgb_map.data_ptr(),
             depth.data_ptr(), acc.data_ptr(), weights.data_ptr(), N, S,
-            float(ert_threshold), int(sigma_activation == "softplus"),
+            float(ert_threshold), int(sigma_activation == "softplus"), *extra,
             torch.cuda.current_stream(raw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate kernel launch failed: CUDA error {rc}")
@@ -198,9 +232,10 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a built ``csrc/integrate.cu``'s exports."""
     p = ctypes.c_void_p
+    args = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+    lib.launch_integrate.argtypes = args + [p, p]  # ..., ERT's counter (or null), stream
+    lib.launch_integrate_warp.argtypes = args + [p]
     for fn in (lib.launch_integrate, lib.launch_integrate_warp):
-        fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, p]
         fn.restype = ctypes.c_int
     return lib
 

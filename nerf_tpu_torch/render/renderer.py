@@ -50,6 +50,7 @@ from ..ops.fused_mlp import (KERNEL_DTYPES, fused_nerf_eval, fused_nerf_eval_pla
 from ..ops.integrate import composite_kernel
 from ..ops.kilonerf import KiloConfig, kilonerf_eval, no_drop_capacity, query_network_kilonerf
 from ..tree import tree_map
+from ..utils.profiling import span
 from . import occupancy as occ
 from .composite import EMPTY_SIGMA_RAW, composite, density_activation
 from .rays import image_rays
@@ -459,14 +460,15 @@ def render_rays(params: Mapping[str, Dict[str, torch.Tensor]], rays_o: torch.Ten
 
 
 def _render_rays(params, rays_o, rays_d, opts: RenderOptions, grid, generator, train):
-    if opts.enable_ess and grid is not None:
-        z_vals = occ.sample_coarse_with_ess(
-            grid, rays_o, rays_d, opts.n_samples, opts.near, opts.far,
-            perturb=opts.perturb, lindisp=opts.lindisp, generator=generator)
-    else:
-        z_vals = sample_coarse(rays_o.shape[0], opts.n_samples, opts.near, opts.far,
-                               perturb=opts.perturb, lindisp=opts.lindisp,
-                               generator=generator, device=rays_o.device)
+    with span("rays.sample"):  # the coarse samples (ESS's probe)
+        if opts.enable_ess and grid is not None:
+            z_vals = occ.sample_coarse_with_ess(
+                grid, rays_o, rays_d, opts.n_samples, opts.near, opts.far,
+                perturb=opts.perturb, lindisp=opts.lindisp, generator=generator)
+        else:
+            z_vals = sample_coarse(rays_o.shape[0], opts.n_samples, opts.near, opts.far,
+                                   perturb=opts.perturb, lindisp=opts.lindisp,
+                                   generator=generator, device=rays_o.device)
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., None]
     raw = query(params["coarse"], pts, rays_d, opts)
     out_c = _composite(raw, z_vals.contiguous(), rays_d, opts, generator)
@@ -478,9 +480,10 @@ def _render_rays(params, rays_o, rays_d, opts: RenderOptions, grid, generator, t
         w_fine = out_c["weights"][..., 1:-1]
         if opts.detach_fine_sampling:
             z_mid, w_fine = z_mid.detach(), w_fine.detach()
-        z_fine = sample_pdf(z_mid, w_fine, opts.n_importance, deterministic=not train,
-                            generator=generator)
-        z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
+        with span("rays.sample"):  # the fine samples, merged with the coarse
+            z_fine = sample_pdf(z_mid, w_fine, opts.n_importance, deterministic=not train,
+                                generator=generator)
+            z_all = torch.sort(torch.cat([z_vals, z_fine], dim=-1), dim=-1).values
         pts_f = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., None]
         if opts.enable_ess and grid is not None and opts.ess_compaction > 0.0 and not train:
             cap = compaction_capacity(z_all.shape[0] * z_all.shape[1], opts.ess_compaction)

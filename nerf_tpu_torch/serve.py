@@ -32,6 +32,7 @@ from .device import resolve_device
 from .render.renderer import RenderOptions, render_image
 from .run import load_eval_model
 from .utils.png import decode_png, encode_png  # noqa: F401  decode_png: for the server's clients
+from .utils.profiling import count, span
 
 _PAGE = """<!DOCTYPE html><html><body style="margin:0;background:#222">
 <img id=v style="display:block;margin:auto;image-rendering:pixelated;width:600px">
@@ -87,14 +88,22 @@ class RenderService:
         as the JAX server uses PRNGKey(0), so a pose always renders alike."""
         pose = torch.as_tensor(look_at_pose(theta, phi, radius), device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(0)
-        with self._lock:
+        with span("serve.lock_wait"):
+            if not self._lock.acquire(blocking=False):
+                count("serve.lock_contended")  # another request holds it: wait
+                self._lock.acquire()
+        try:
             out = render_image(self.params, pose, self.K, self.size, self.size,
                                opts or self.opts, grid=self.grid, generator=gen)
+        finally:
+            self._lock.release()
         return out.get("rgb_map", out["rgb_map_0"])
 
     def render_png(self, theta: float, phi: float, radius: float) -> bytes:
         rgb = self.render(theta, phi, radius).cpu().numpy()
-        return encode_png((np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+        img = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
+        with span("serve.png"):
+            return encode_png(img)
 
 
 def make_handler(service: RenderService):
@@ -119,6 +128,10 @@ def make_handler(service: RenderService):
             if url.path != "/frame":
                 self._send(404, "text/plain", b"not found")
                 return
+            with span("serve.request"):  # the root of the request's spans
+                self._frame(url)
+
+        def _frame(self, url):
             q = parse_qs(url.query)
             try:
                 args = [float(q.get(name, [default])[0]) for name, default in

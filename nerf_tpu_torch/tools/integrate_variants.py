@@ -79,13 +79,13 @@ def _time_one(name: str, so: str, reps: int) -> None:
         outs = [torch.empty(shape, device=dev) for shape in ((n, 3), (n,), (n,), (n, s))]
         args = [t.data_ptr() for t in (raw, z, d, *outs)] + [n, s, ERT, 0]
 
-        def timed(fn) -> float:
-            if fn(*args, torch.cuda.current_stream().cuda_stream) != 0:
+        def timed(fn, *extra) -> float:
+            if fn(*args, *extra, torch.cuda.current_stream().cuda_stream) != 0:
                 raise RuntimeError(f"{name}: launch failed")
-            return variants.graph_ms(lambda: fn(*args, torch.cuda.current_stream().cuda_stream),
-                                     reps)
+            return variants.graph_ms(
+                lambda: fn(*args, *extra, torch.cuda.current_stream().cuda_stream), reps)
 
-        cell = f"{n}x{s} {timed(lib.launch_integrate):.4f}"
+        cell = f"{n}x{s} {timed(lib.launch_integrate, None):.4f}"  # no ERT counter
         if name == "kernel":
             cell += f" (previous {timed(lib.launch_integrate_warp):.4f})"
         cells.append(cell)

@@ -13,8 +13,12 @@ parameters, rebuilds the ESS grid from their density and takes random
 colours at the same 8 poses as the targets. Then it times --steps warm
 train steps (1024 rays, 64 + 128 samples) twice: once by the host clock
 with a synchronize per step, once under torch.profiler. Prints ms per step,
-the device's busy share (the kernels' summed time over the profiled wall
-time) and the kernels and host operators that take the most time per step.
+the device's busy share (the union of its operations, overlaps counted once,
+over the profiled window), its idle time split by the program's span the
+host was innermost in at each idle instant (``utils/profiling``:
+``train.step``, ``train.optimizer``, ``mlp.pack``, ``mlp.unpack_grads``,
+``rays.sample``; the rule of the benchmark's ``idle_*`` metrics) and the
+kernels and host operators that take the most time per step.
 ``--nccl``: first the step without a group and as a rank of a
 data-parallel run at world 1 (a lone NCCL process group; the gradients'
 all-reduce) in turns (NCCL, none, none, NCCL) of --steps steps, each turn
@@ -45,6 +49,7 @@ from ..train.checkpoint import load_checkpoint
 from ..train.optim import make_optimizer
 from ..train.state import init_state, train_step
 from ..tree import tree_leaves
+from ..utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -52,6 +57,30 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", None)
                  or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+WINDOW = "train_profile.window"
+
+
+def _intervals(events, spans):
+    """(the window marker's (start, end), device operations [(start, end)],
+    the program's spans [(name, start, end)], those named in ``spans``) in
+    seconds, from the profiler's events; a host range's device-side
+    annotation (same name) is no device operation."""
+    from torch.autograd import DeviceType
+
+    window, device, host = None, [], []
+    for ev in events:
+        s, e = ev.time_range.start * 1e-6, ev.time_range.end * 1e-6
+        if ev.device_type == DeviceType.CUDA:
+            device.append((ev.name, s, e))
+        elif ev.name == WINDOW:
+            window = (s, e)
+        else:
+            host.append((ev.name, s, e))
+    ranges = {n for n, _, _ in host} | {WINDOW}
+    return (window, [(s, e) for n, s, e in device if n not in ranges],
+            [h for h in host if h[0] in spans])
 
 
 def _timed_steps(step, steps: int):
@@ -206,19 +235,30 @@ def main(argv=None) -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        with torch.profiler.record_function(WINDOW):
+            for _ in range(args.steps):
+                step()
+            torch.cuda.synchronize()
+    spans = {r.name for r in profiling.spans()}
+    profiling.reset()
+    window, device, host = _intervals(prof.events(), spans)
+    lo, hi = window
+    by_span, idle = profiling.idle_by_span(device, host, lo, hi)
+    wall = hi - lo
+    busy = wall - idle
     events = prof.key_averages()
     kernels = [e for e in events if _device_us(e) > 0 and e.device_type.name == "CUDA"]
     if not kernels:
         kernels = [e for e in events if _device_us(e) > 0]
-    busy = sum(_device_us(e) for e in kernels) / 1e3
-    print(f"profiled: {wall * 1e3 / args.steps:.3f} ms per step (wall); kernels "
-          f"{busy / args.steps:.3f} ms per step, device busy {busy / (wall * 1e3):.3f} of the "
-          f"wall time, idle {1 - busy / (wall * 1e3):.3f}")
+    kernels = [e for e in kernels if e.key not in spans]  # the spans' device-side annotations
+    print(f"profiled: {wall * 1e3 / args.steps:.3f} ms per step (wall); device busy "
+          f"{busy * 1e3 / args.steps:.3f} ms per step (the union of its operations), "
+          f"{busy / wall:.3f} of the wall time, idle {idle / wall:.3f}")
+    print("device idle by the program's span the host was innermost in (ms per step, share "
+          "of the idle time):")
+    for name, t in sorted(by_span.items(), key=lambda kv: -kv[1]):
+        print(f"  {t * 1e3 / args.steps:8.4f}  {t / idle if idle else 0.0:6.3f}  "
+              f"{name or '(outside every span)'}")
     print("top kernels by device time (ms per step, launches per step):")
     for e in sorted(kernels, key=_device_us, reverse=True)[:args.top]:
         print(f"  {_device_us(e) / 1e3 / args.steps:8.4f}  {e.count / args.steps:6.1f}  "

@@ -33,6 +33,7 @@ from ..render.rays import image_rays, rays_for_pixels
 from ..render.renderer import RenderOptions, render_rays
 from ..render.sampling import RowShard
 from ..tree import tree_leaves
+from ..utils.profiling import span
 from .optim import OptState, Optimizer
 
 
@@ -136,11 +137,13 @@ def apply_step(state: TrainState, rays_o: torch.Tensor, rays_d: torch.Tensor,
     _, stats, grads = loss_and_grads(state.params, rays_o, rays_d, target, opts, grid, generator)
     if group is not None:
         grads, stats = _global_stats(grads, stats)
-    tx.step(tree_leaves(state.params), grads, state.opt_state)
+    with span("train.optimizer"):
+        tx.step(tree_leaves(state.params), grads, state.opt_state)
     state.step += 1
     return {k: v.detach() for k, v in stats.items()}
 
 
+@span("train.step")
 def train_step(state: TrainState, images_u8: torch.Tensor, poses: torch.Tensor,
                intrinsics: torch.Tensor, tx: Optimizer, opts: RenderOptions, n_rays: int,
                grid: Optional[OccupancyGrid] = None,

@@ -14,17 +14,40 @@
   after the copy, so a frame's time is its device work, not its enqueue.
   The first ``drop_first`` frames (the warm-up) are left out of the
   summary, as the reference's run.py does.
+
+Spans and counters inside the program, on only while a torch profiler runs
+in the process (``torch.profiler.profile``, ``trace`` above); the profiler
+is the switch, and nothing else turns them on:
+
+- ``span(name)``: a context manager, or a decorator, around a region of
+  host code. Off, it costs one flag check. On, it keeps a ``SpanRecord``
+  (name, start and end from ``time.perf_counter_ns``, its id, its parent's
+  and its root's id, the thread) in a bounded buffer, so every span of one
+  request shares its root's id; in a thread that the profiler records, it
+  also opens ``record_function(name)``, so the span sits in the profiler's
+  trace on the device trace's clock. A span times the host's enqueue and
+  never synchronises: device time comes from the device trace.
+- ``count(name, n)``: a host counter, under the same switch.
+- ``spans()``, ``counters()`` (the host counters, the ``ops/`` launch
+  counters and the compositing kernel's device count of samples cut by
+  early ray termination; reading that count synchronises), ``reset()``.
+- ``idle_by_span(device, spans, lo, hi)``: the device's idle time in
+  [lo, hi] split by the innermost span the host was in at each instant.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import os
 import tempfile
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from ..tree import tree_leaves
 
@@ -109,3 +132,210 @@ class RaysPerSecond:
         return {"rays_per_s": total_rays / total_t if total_t else 0.0,
                 "mean_time_s": mean_t, "fps": 1.0 / mean_t if mean_t else 0.0,
                 "frames": len(kept)}
+
+
+# --- spans and counters ---------------------------------------------------
+
+MAX_SPANS = 1 << 16  # records kept; later ones are counted in ``dropped``
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+    id: int
+    parent: Optional[int]  # None for a root
+    root: int  # the id of the outermost span of this thread's stack
+    thread: int  # threading.get_ident()
+
+
+_records: List[SpanRecord] = []
+_counts: Dict[str, int] = {}
+_dropped = [0]
+_lock = threading.Lock()
+_ids = itertools.count(1)
+_local = threading.local()
+
+
+def enabled() -> bool:
+    """Whether spans and counters record: a torch profiler runs in the
+    process (in any thread)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def _decorate(name: str, fn):
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+
+    return spanned
+
+
+class _Off:
+    """A span that records nothing, one a name, shared by every call."""
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+    def __call__(self, fn):
+        return _decorate(self.name, fn)
+
+
+_off: Dict[str, _Off] = {}
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "root", "start", "annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _stack()
+        self.id = next(_ids)
+        self.parent = stack[-1].id if stack else None
+        self.root = stack[0].id if stack else self.id
+        stack.append(self)
+        # a range in the trace only where the profiler records this thread:
+        # elsewhere its device-side annotation would come without its host range
+        self.annotation = None
+        if torch._C._autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        _stack().pop()  # spans nest within a thread: this one is on top
+        rec = SpanRecord(self.name, self.start, end, self.id, self.parent, self.root,
+                         threading.get_ident())
+        with _lock:
+            if len(_records) < MAX_SPANS:
+                _records.append(rec)
+            else:
+                _dropped[0] += 1
+        return False
+
+    def __call__(self, fn):
+        return _decorate(self.name, fn)
+
+
+def span(name: str):
+    """A span named ``name``: ``with span(name): ...`` or ``@span(name)``
+    (the decorated function opens a span at each call)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        try:
+            return _off[name]
+        except KeyError:
+            return _off.setdefault(name, _Off(name))
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the host counter ``name`` (while spans are on)."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _lock:
+            _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def spans() -> List[SpanRecord]:
+    """The kept records, in the order their spans ended."""
+    with _lock:
+        return list(_records)
+
+
+def dropped() -> int:
+    """Records not kept since the last ``reset``: the buffer was full."""
+    return _dropped[0]
+
+
+def counters() -> Dict[str, int]:
+    """The host counters; each ``ops/`` kernel's launches
+    (``launches.<wrapper>``); ``b3.ert_cut``, the compositing kernel's count
+    of the samples whose weight early ray termination zeroed while spans
+    were on (a device read: it synchronises)."""
+    from ..ops import fused_mlp, fused_mlp_bwd, hash_gather, integrate
+
+    with _lock:
+        out = dict(_counts)
+    for fn in (fused_mlp.fused_nerf_eval, fused_mlp.fused_nerf_eval_f32,
+               fused_mlp_bwd.fused_nerf_bwd, fused_mlp_bwd.fused_nerf_bwd_f32,
+               hash_gather.gather_rows, hash_gather.scatter_add_rows, integrate.integrate):
+        out[f"launches.{fn.__name__}"] = int(getattr(fn, "launches", 0))
+    cut = integrate.ert_cut_count()
+    if cut is not None:
+        out["b3.ert_cut"] = cut
+    return out
+
+
+def reset() -> None:
+    """Forget the records, the host counters and the device count (the
+    launch counters stay: their readers take differences)."""
+    from ..ops import integrate
+
+    with _lock:
+        _records.clear()
+        _counts.clear()
+        _dropped[0] = 0
+    integrate.ert_cut_reset()
+
+
+def idle_by_span(device: Iterable[Tuple[float, float]],
+                 spans: Sequence[Tuple[str, float, float]], lo: float, hi: float
+                 ) -> Tuple[Dict[str, float], float]:
+    """The device's idle time in [lo, hi] (outside the union of the
+    ``device`` intervals (start, end)) split exactly by the innermost of
+    ``spans`` (name, start, end) that the host was in at each instant: the
+    latest to start, the shortest of those. Returns ({name: idle s}, with
+    ``""`` for idle time outside every span, and the total idle s)."""
+    busy: List[List[float]] = []
+    for s, e in sorted(device):
+        s, e = max(s, lo), min(e, hi)
+        if e <= s:
+            continue
+        if busy and s <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], e)
+        else:
+            busy.append([s, e])
+    idle, t = [], lo
+    for s, e in busy:
+        if s > t:
+            idle.append((t, s))
+        t = max(t, e)
+    if hi > t:
+        idle.append((t, hi))
+    ranges = sorted((max(s, lo), min(e, hi), n) for n, s, e in spans if min(e, hi) > max(s, lo))
+    bounds = sorted({x for s, e in idle for x in (s, e)} | {x for s, e, _ in ranges for x in (s, e)})
+    out: Dict[str, float] = {}
+    active: List[Tuple[float, float, str]] = []
+    gi = ri = 0
+    for a, b in zip(bounds, bounds[1:]):
+        while gi < len(idle) and idle[gi][1] <= a:
+            gi += 1
+        if gi == len(idle) or idle[gi][0] > a:  # busy here
+            continue
+        while ri < len(ranges) and ranges[ri][0] <= a:
+            active.append(ranges[ri])
+            ri += 1
+        active = [r for r in active if r[1] > a]
+        name = max(active, key=lambda r: (r[0], -r[1]))[2] if active else ""
+        out[name] = out.get(name, 0.0) + (b - a)
+    return out, sum(e - s for s, e in idle)

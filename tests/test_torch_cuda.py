@@ -324,6 +324,55 @@ def test_integrate_kernel_is_rowwise(cuda):
             assert torch.equal(part[k], whole[k][:n]), (n, k)
 
 
+def _lego_tile(lego, cuda, n, s):
+    """A lego tile: n rays through the middle rows of a 200x200 orbit view,
+    s evenly spaced samples in [2, 6], raw from the fine MLP (B1)."""
+    opts = RenderOptions(perturb=0.0, enable_ess=False)
+    kp = kernel_params(lego, opts, cuda)["fine"]
+    K = torch.tensor([[278.0, 0, 100], [0, 278.0, 100], [0, 0, 1]], device=cuda)
+    o, d = image_rays(200, 200, K, torch.as_tensor(look_at_pose(0.5, 0.3, 4.0), device=cuda))
+    first = 20_000 - n // 2
+    o, d = o[first:first + n].contiguous(), d[first:first + n].contiguous()
+    z = torch.linspace(2.0, 6.0, s, device=cuda).expand(n, s).contiguous()
+    raw = fused_mlp.query_network(kp, o[:, None] + d[:, None] * z[..., None], d)
+    return raw.reshape(n, s, 4).contiguous(), z, d
+
+
+def _counted(raw, z, d, ert):
+    """integrate under a profiler: (its maps, its count of samples past
+    ERT's cut, the samples it was given)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = tint.integrate(raw, z, d, ert, True, "relu")
+    counts = profiling.counters()
+    profiling.reset()
+    return got, counts["b3.ert_cut"], counts["b3.samples"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ert", [0.01, 0.1])
+@pytest.mark.parametrize("n,s", [(8192, 64), (8192, 192), (77, 192), (1024, 300)])
+def test_integrate_counts_the_samples_past_erts_cut(lego, cuda, ert, n, s):
+    """On lego tiles (a partial last block at 77 rays, the chunked loop at
+    300 samples) the count lies between the plain transmittance's samples
+    surely past the cut and those past it or within rounding of it; the maps
+    are those of the launch without a counter; with ERT off it is 0."""
+    raw, z, d = _lego_tile(lego, cuda, n, s)
+    beyond, near = tint.past_the_cut(tint.plain_transmittance(raw, z, d), ert)
+    got, cut, samples = _counted(raw, z, d, ert)
+    assert samples == n * s
+    assert int(beyond.sum()) <= cut <= int((beyond | near).sum())
+    assert int(beyond.sum()) > 0
+    plain = tint.integrate(raw, z, d, ert, True, "relu")
+    for k in ("rgb_map", "depth_map", "acc_map", "weights"):
+        assert torch.equal(got[k], plain[k]), k
+    assert _counted(raw, z, d, 0.0)[1] == 0
+
+
 @pytest.mark.cuda
 def test_integrate_kernel_rejects_a_misaligned_raw(cuda):
     raw = torch.zeros(4 * 8 * 4 + 1, device=cuda)[1:].reshape(4, 8, 4)

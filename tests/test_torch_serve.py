@@ -77,6 +77,45 @@ def test_frame_error_answers_500_and_is_counted(served):
     assert service.errors == before + 1
 
 
+def test_overlapping_requests_under_a_profiler_leave_their_spans(served):
+    """Two /frame requests that wait for the render lock, under a profiler:
+    two serve.request roots, each with its serve.lock_wait and serve.png
+    (and the render's sampling) sharing its id, and the lock found held."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from nerf_tpu_torch.utils import profiling
+
+    service, base = served
+    profiling.reset()
+    statuses = []
+    url = f"{base}/frame?theta=0.5&phi=0.3&radius=4.0"
+    with profile(activities=[ProfilerActivity.CPU]):
+        with service._lock:  # held until both requests have found it held
+            clients = [threading.Thread(target=lambda: statuses.append(_get(url)[0]))
+                       for _ in range(2)]
+            for c in clients:
+                c.start()
+            deadline = time.monotonic() + 60
+            while (profiling.counters().get("serve.lock_contended", 0) < 2
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+        for c in clients:
+            c.join(timeout=60)
+    assert statuses == [200, 200]
+    recs = profiling.spans()
+    roots = [r for r in recs if r.name == "serve.request"]
+    assert len(roots) == 2 and all(r.parent is None and r.root == r.id for r in roots)
+    for root in roots:
+        kids = [r.name for r in recs if r.root == root.id and r is not root]
+        assert kids.count("serve.lock_wait") == 1 and kids.count("serve.png") == 1
+        assert set(kids) == {"serve.lock_wait", "serve.png", "rays.sample"}  # the render's
+        assert all(r.thread == root.thread for r in recs if r.root == root.id)
+    assert profiling.counters()["serve.lock_contended"] >= 1
+    profiling.reset()
+
+
 def test_png_round_trip():
     img = np.random.default_rng(0).integers(0, 256, (7, 5, 3), dtype=np.uint8)
     np.testing.assert_array_equal(decode_png(encode_png(img)), img)
