@@ -277,7 +277,13 @@ Phases, each printed with its elapsed seconds:
      gather_feat on it (equal); a torch.profiler trace
      (utils/profiling.trace) of one warm 200x200 lego render, whose Chrome
      trace must name B1's and B3's kernels; and memory_stats(), which must
-     report the card's bytes in use and peak.
+     report the card's bytes in use and peak;
+ 44. the multi-tensor Adam kernel (csrc/adam.cu) on the committed lego
+     state's 48 leaves (nerf_tpu_torch/tools/adam_check.py): 3 steps equal
+     to step_plain's bit for bit (p, mu, nu); its time by CUDA events, warm
+     (L2 evicted before each launch, and back to back in a CUDA graph)
+     beside its byte bound and step_plain's time, and the host's time a
+     step of each. Phase 7 must have launched it.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -960,6 +966,7 @@ def train_phase(root, tmp):
     train one epoch; check its log and its checkpoint."""
     import numpy as np
     from nerf_tpu_torch.config import make_cfg
+    from nerf_tpu_torch.ops import adam
     from nerf_tpu_torch.train.checkpoint import load_checkpoint
 
     model_dir = os.path.join(tmp, "model")
@@ -973,10 +980,13 @@ def train_phase(root, tmp):
             "record_dir", os.path.join(tmp, "record")]
     cfg_file = os.path.join(root, "configs/nerf/lego.yaml")
     cfg = make_cfg(cfg_file, opts)
+    adam_before = adam.adam.launches
     state, grid, launches, text, train_s = _drive_trainer(cfg_file, opts, _counters())
     log(f"train entry point: {train_s:.2f} s (data, resume, {TRAIN_STEPS} steps, ESS rebuild, "
-        f"checkpoint); launches {launches}")
+        f"checkpoint); launches {launches}, adam {adam.adam.launches - adam_before}")
     check(all(v > 0 for v in launches.values()), "a kernel was not launched by the train path")
+    check(adam.adam.launches - adam_before == TRAIN_STEPS,
+          "the train path did not update its leaves through the Adam kernel once a step")
     losses = [float(v) for v in re.findall(r"\bloss: (\S+)", text)]
     check(len(losses) == TRAIN_STEPS // 50 and all(math.isfinite(v) for v in losses),
           f"logged losses {losses}")
@@ -990,6 +1000,25 @@ def train_phase(root, tmp):
           "the written checkpoint does not load back through load_checkpoint")
     log(f"checkpoint: 147 leaves, step {step}, epoch {back[1]}; loads back")
     return cfg, state, grid, launches
+
+
+def adam_phase(dev, smi):
+    """The Adam kernel on lego's leaves: exact against step_plain, then its
+    times (tools/adam_check.py); returns its row of the kernel table."""
+    from nerf_tpu_torch.tools import adam_check
+
+    t = adam_check.run(dev)
+    log(f"adam on {smi}, lego's {t['leaves']} leaves ({t['elements']} elements), equal to "
+        f"step_plain bit for bit over 3 steps: {t['ms'] * 1e3:.2f} us a launch, L2 evicted "
+        f"before each ({t['l2_warm_ms'] * 1e3:.2f} us back to back in a CUDA graph), bound "
+        f"{t['bound_ms'] * 1e3:.2f} us (28 bytes an element), {100 * t['share_of_bound']:.1f}% of "
+        f"it; step_plain {t['plain_ms']:.4f} ms by events; host {t['host_us']:.1f} us a step "
+        f"(step_plain {t['plain_host_us']:.1f} us)")
+    return {"name": "adam", "route": "cuda", "source": "nerf_tpu_torch/csrc/adam.cu",
+            "replaces": "none (optax's update, fused by XLA; added to cut the loop's 720 "
+                        "launches a lego step)", "launches": 1, "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None}
 
 
 def _clone_state(state):
@@ -4224,7 +4253,9 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
         f"scene {colmap_run['seconds']:.2f} s")
     log("phase 43: the helpers, the profiler's trace and memory_stats on the card")
     helpers_phase(dev, smi, service)
-    log("phase 44: done")
+    log("phase 44: the multi-tensor Adam kernel on lego's 48 leaves")
+    kernels.append(adam_phase(dev, smi))
+    log("phase 45: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
              "sector_floor_ms", "encoder_launches",

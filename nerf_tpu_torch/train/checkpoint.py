@@ -117,8 +117,10 @@ def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
                 if arr.shape != shape:
                     raise ValueError(f"{path}: leaf_{i} ({model}.{sub}) has shape "
                                      f"{arr.shape}, expected {shape}")
-                _set(params, (model,) + sub, bf16_to_float32(arr) if _bf16_bits(arr)
-                     else np.asarray(arr, np.float32))
+                value = bf16_to_float32(arr) if _bf16_bits(arr) else arr
+                # C order, as a fresh model's leaves are: a JAX file may hold a
+                # leaf in Fortran order (the optimizer's kernel takes C order)
+                _set(params, (model,) + sub, np.ascontiguousarray(value, np.float32))
     return params
 
 
@@ -223,7 +225,10 @@ def load_checkpoint(model_dir: str, template, tag: str = "latest"):
                     raise ValueError(f"{path}: leaf_{i} is {arr.dtype}, expected bfloat16 bits")
                 leaves.append(bf16_tensor(arr).to(like.device))
             else:
-                leaves.append(torch.from_numpy(np.array(arr, np.float32)).to(like.device))
+                # C order, as in ``load_params``: the optimizer's kernel
+                # updates contiguous tensors in place
+                arr = np.ascontiguousarray(arr, np.float32)
+                leaves.append(torch.from_numpy(arr).to(like.device))
         else:
             if arr.shape != ():
                 raise ValueError(f"{path}: leaf_{i} has shape {arr.shape}, expected a counter")

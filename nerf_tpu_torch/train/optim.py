@@ -17,14 +17,27 @@ update's dtype, and ``apply_updates`` adds in bfloat16.
 The state is kept as the JAX package stores it, so checkpoints carry over:
 Adam's count, ``mu``, ``nu`` (one tensor per parameter leaf, in the leaf's
 dtype) and the schedule's count.
+
+``Optimizer.step`` updates CUDA leaves through ``csrc/adam.cu``
+(``ops/adam.py``): one launch a dtype, with the params and the moments
+updated in place, the same roundings in the same order as the loop. The
+loop, ``Optimizer.step_plain`` (15 eager ops a leaf), is the plain version:
+the CPU's path, and what the tests hold the kernel to, bit for bit. Both
+take their constants from ``scalars`` and ``operands``. While the program's
+counters are on (``utils/profiling``), ``step`` counts the leaves it is
+given (``optim.leaves``) and those the kernel updated
+(``optim.fused_leaves``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..ops import adam
+from ..utils import profiling
 
 Schedule = Callable[[int], np.float32]
 CLIP = 40.0
@@ -96,6 +109,32 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(v, dtype=torch.float64).to(dtype))
 
 
+class StepScalars(NamedTuple):
+    """One step's scalars, before their rounding to a leaf's dtype."""
+    count: int  # the moments' update count after the step
+    bc1: float  # 1 - b1 ** count
+    bc2: float  # 1 - b2 ** count
+    r: float  # RAdam's rectification (1 otherwise)
+    rect: bool  # Adam, or RAdam with ro >= 5: mu_hat / (sqrt(nu_hat) + eps)
+    neg_lr: float
+
+
+class Operands(NamedTuple):
+    """The constants the loop's ops take for leaves of one dtype: Python
+    floats that PyTorch rounds to float32 for a float32 leaf; for another
+    dtype, values that dtype holds exactly."""
+    omb1: float  # 1 - b1
+    b1: float
+    omb2: float  # 1 - b2
+    b2: float
+    bc1: float
+    bc2: float
+    eps: float
+    r: float
+    wd: float
+    neg_lr: float
+
+
 @dataclasses.dataclass
 class OptState:
     count: int  # the moments' update count (Adam, RAdam)
@@ -120,11 +159,12 @@ class Optimizer:
     def __init__(self, schedule: Schedule, kind: str = "adam", weight_decay: float = 0.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  bare: bool = False):
-        if kind not in ("adam", "radam", "sgd"):
+        if kind not in adam.KINDS:
             raise ValueError(f"unknown optimizer {kind}")
         self.schedule, self.kind, self.weight_decay = schedule, kind, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.bare = bare
+        self._table = adam.Table()  # the kernel's launch tables, kept across steps
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         sched = None if self.bare else 0
@@ -137,44 +177,86 @@ class Optimizer:
     def lr(self, state: OptState) -> float:
         return float(self.schedule(state.sched_count or 0))
 
+    def scalars(self, state: OptState) -> StepScalars:
+        """The scalars of the step that ``state`` is about to take."""
+        f32 = np.float32
+        neg_lr = float(-self.schedule(state.sched_count or 0))
+        if self.kind == "sgd":
+            return StepScalars(state.count, 1.0, 1.0, 1.0, True, neg_lr)
+        count = state.count + 1
+        b2t = _ipow(self.b2, count)
+        bc1, bc2 = float(f32(1.0) - _ipow(self.b1, count)), float(f32(1.0) - b2t)
+        r, rect = 1.0, True
+        if self.kind == "radam":
+            ro_inf = 2.0 / (1.0 - self.b2) - 1.0
+            ro = f32(ro_inf) - f32(2 * count) * b2t / (f32(1.0) - b2t)
+            r = float(np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf)
+                              / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro)))
+            rect = bool(ro >= 5.0)
+        return StepScalars(count, bc1, bc2, r, rect, neg_lr)
+
+    def operands(self, s: StepScalars, dtype: torch.dtype) -> Operands:
+        """The constants the loop's ops take for leaves of ``dtype``."""
+        def c(v):  # a constant as an operand of the leaf's dtype
+            return v if dtype == torch.float32 else _rounded(v, dtype)
+
+        return Operands(c(1.0 - self.b1), c(self.b1), c(1.0 - self.b2), c(self.b2), c(s.bc1),
+                        c(s.bc2), c(self.eps), c(s.r), c(self.weight_decay), c(s.neg_lr))
+
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
              state: OptState) -> None:
-        """Update ``params`` and ``state`` in place with one optax step."""
-        f32 = np.float32
-        if self.kind != "sgd":
-            count = state.count + 1
-            b2t = _ipow(self.b2, count)
-            bc1, bc2 = float(f32(1.0) - _ipow(self.b1, count)), float(f32(1.0) - b2t)
-            if self.kind == "radam":
-                ro_inf = 2.0 / (1.0 - self.b2) - 1.0
-                ro = f32(ro_inf) - f32(2 * count) * b2t / (f32(1.0) - b2t)
-                r = np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf)
-                            / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
-            state.count = count
-        neg_lr = -self.schedule(state.sched_count or 0)
-        for i, (p, g) in enumerate(zip(params, grads)):
-            def c(v):  # a constant as an operand of p's dtype
-                return v if p.dtype == torch.float32 else _rounded(v, p.dtype)
+        """Update ``params`` and ``state`` in place with one optax step: CUDA
+        leaves through ``ops/adam.py`` (one launch a dtype, the moments
+        updated in place), CPU leaves through ``step_plain``."""
+        profiling.count("optim.leaves", len(params))
+        if not params or params[0].device.type != "cuda":
+            self.step_plain(params, grads, state)
+            return
+        s = self.scalars(state)
+        decay = self.weight_decay > 0
 
+        def scalars_for(dtype):
+            return adam.scalars(self.operands(s, dtype), self.kind, self.bare, s.rect, decay)
+
+        adam.adam(self._table, params, grads, state.mu, state.nu, scalars_for)
+        profiling.count("optim.fused_leaves", len(params))
+        self._advance(state, s)
+
+    @torch.no_grad()
+    def step_plain(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                   state: OptState) -> None:
+        """``step`` as eager PyTorch ops, leaf by leaf, on any device (new
+        moment tensors each step): the CPU's path, and the plain version that
+        the kernel equals bit for bit on the card."""
+        s = self.scalars(state)
+        ops = {}
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if p.dtype not in ops:
+                ops[p.dtype] = self.operands(s, p.dtype)
+            o = ops[p.dtype]
             if not self.bare:
                 g = g.clamp(-CLIP, CLIP)
             if self.kind == "sgd":
                 u = g
             else:
-                mu = c(1.0 - self.b1) * g + c(self.b1) * state.mu[i]
-                nu = c(1.0 - self.b2) * (g * g) + c(self.b2) * state.nu[i]
+                mu = o.omb1 * g + o.b1 * state.mu[i]
+                nu = o.omb2 * (g * g) + o.b2 * state.nu[i]
                 state.mu[i], state.nu[i] = mu, nu
-                mu_hat, nu_hat = mu / c(bc1), nu / c(bc2)
-                if self.kind == "adam" or ro >= 5.0:
-                    u = mu_hat / (torch.sqrt(nu_hat) + c(self.eps))
+                mu_hat, nu_hat = mu / o.bc1, nu / o.bc2
+                if s.rect:
+                    u = mu_hat / (torch.sqrt(nu_hat) + o.eps)
                     if self.kind == "radam":
-                        u = c(float(r)) * u
+                        u = o.r * u
                 else:
                     u = mu_hat
             if self.weight_decay > 0:
-                u = u + c(self.weight_decay) * p
-            p.add_(u * c(float(neg_lr)))
+                u = u + o.wd * p
+            p.add_(u * o.neg_lr)
+        self._advance(state, s)
+
+    def _advance(self, state: OptState, s: StepScalars) -> None:
+        state.count = s.count
         if state.sched_count is not None:
             state.sched_count += 1
 
