@@ -9,8 +9,8 @@ Phases, each printed with its elapsed seconds:
      and print ptxas's registers, stack and spills for each kernel entry (the
      wgmma kernels must not spill);
   3. each kernel against its plain PyTorch version on random inputs (the
-     fused MLP on 65,536 points; integrate with and without ERT, relu and
-     softplus, S = 64 and 192 at N = 8192 and 1024, also against the
+     fused MLP on 65,536 points; integrate with and without ERT, relu,
+     softplus and exp, S = 64 and 192 at N = 8192 and 1024, also against the
      previous (warp-round) integrate kernel); the fused MLP's wgmma path: one layer's
      product against torch.matmul, 84,525 random points (5 rounds of the
      persistent grid and a ragged tile) against the plain version and the
@@ -283,7 +283,16 @@ Phases, each printed with its elapsed seconds:
      to step_plain's bit for bit (p, mu, nu); its time by CUDA events, warm
      (L2 evicted before each launch, and back to back in a CUDA graph)
      beside its byte bound and step_plain's time, and the host's time a
-     step of each. Phase 7 must have launched it.
+     step of each. Phase 7 must have launched it;
+ 45. Instant-NGP's train path (nerf_tpu_torch/configs/lego_ngp.yaml, a seeded
+     state; nerf_tpu_torch/tools/ngp_check.py): B4 on the float32 table's
+     8-byte rows at 2^18 points x 128 corner rows, exact against
+     gather_rows_plain, and B4' (float32, no rounding pass) into its
+     8,388,608 rows against scatter_add_rows_plain; one train step of 4,096
+     rays x 64 samples with the launch counters zeroed just before it (one
+     launch each of B4, B4', B3 and Adam); the Adam kernel with the L2 and
+     the zero-gradient skip, 2 steps equal to step_plain's bit for bit, its
+     skip count equal to the table gradient's zeros.
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -605,7 +614,8 @@ def integrate_turns(label, raw, z, d, ert, act):
 
     nr, s = z.shape
     outs = [torch.empty(shape, device=raw.device) for shape in ((nr, 3), (nr,), (nr,), (nr, s))]
-    args = [t.data_ptr() for t in (raw, z, d, *outs)] + [nr, s, ert, int(act == "softplus")]
+    args = [t.data_ptr() for t in (raw, z, d, *outs)] + [nr, s, ert,
+                                                          tint._ACTIVATIONS.index(act)]
     lib = tint._lib()
     calls = {"new": lambda: lib.launch_integrate(*args, None,  # no ERT counter
                                                  torch.cuda.current_stream().cuda_stream),
@@ -624,7 +634,7 @@ def integrate_turns(label, raw, z, d, ert, act):
 
 def random_phase(kp, dev):
     """Both kernels against their plain versions on random inputs, covering
-    the options the serving path does not take (ERT off, softplus)."""
+    the options the serving path does not take (ERT off, softplus, exp)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -639,10 +649,12 @@ def random_phase(kp, dev):
         z = torch.sort(torch.rand((n, s), generator=gen, device=dev) * 4.0 + 2.0, -1).values
         d = torch.randn((n, 3), generator=gen, device=dev)
         d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        # exp's raw sigma a tenth as wide: densities up to ~e^8, none infinite
+        raw_exp = torch.cat([raw[..., :3], raw[..., 3:] / 10.0], dim=-1)
         for ert in (0.0, 0.01):
-            for act in ("relu", "softplus"):
-                integrate_err = max(integrate_err,
-                                    integrate_errors("random", raw, z, d, ert, act))
+            for act in ("relu", "softplus", "exp"):
+                integrate_err = max(integrate_err, integrate_errors(
+                    "random", raw_exp if act == "exp" else raw, z, d, ert, act))
     return fused_errs, integrate_err
 
 
@@ -1019,6 +1031,21 @@ def adam_phase(dev, smi):
                         "launches a lego step)", "launches": 1, "max_abs_err": 0.0,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None}
+
+
+def ngp_phase(dev, smi):
+    """Instant-NGP's train path on a seeded state (tools/ngp_check.py)."""
+    from nerf_tpu_torch.tools import ngp_check
+
+    t = ngp_check.run(dev)
+    h, a = t["hash"], t["adam"]
+    log(f"ngp on {smi}: gather_rows {h['gather_rows']} rows of 2 float32 from "
+        f"{h['table_rows']}: exact against the plain version; scatter_add_rows into them: max "
+        f"abs err {h['scatter_max_abs_err']:.4g}, worst err / tolerance "
+        f"{h['scatter_worst_over_tol']:.3g}; a step's launches {t['launches']}; adam with the L2 "
+        f"and the skip on {a['leaves']} leaves ({a['elements']} elements) equal to step_plain "
+        f"bit for bit over {len(a['skipped'])} steps, {a['skipped'][0]} elements skipped a step "
+        f"(the table gradient's zeros)")
 
 
 def _clone_state(state):
@@ -4255,7 +4282,10 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
     helpers_phase(dev, smi, service)
     log("phase 44: the multi-tensor Adam kernel on lego's 48 leaves")
     kernels.append(adam_phase(dev, smi))
-    log("phase 45: done")
+    log("phase 45: Instant-NGP's train path: B4 and B4' on its float32 table, a step's "
+        "launches, Adam with the L2 and the skip")
+    ngp_phase(dev, smi)
+    log("phase 46: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
              "sector_floor_ms", "encoder_launches",

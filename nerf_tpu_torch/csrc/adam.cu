@@ -31,6 +31,14 @@
 // float on bfloat16 operands and rounds its result to bfloat16 (PyTorch's
 // opmath), with the constants the loop rounds to bfloat16.
 //
+// Per-leaf rules (Instant-NGP's optimizer, arXiv:2201.05989 section 4): an
+// L2 term l2 * p added to the (clipped) gradient before the moments, set on
+// the MLP weights alone; and a skip: where a leaf with the skip (the hash
+// table) has a gradient of exactly 0, its p, mu and nu are left as they
+// are. The loop does the same (step_plain). While a counter is given, each
+// block of a skip leaf adds the elements it left to it with one atomic.
+// Lego's leaves have neither rule and take the path they took before.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no PyTorch headers; bound with ctypes).
 
@@ -68,6 +76,9 @@ struct AdamArgs {
   const void* g[MAX_LEAVES];
   void* m[MAX_LEAVES];  // null for SGD
   void* v[MAX_LEAVES];
+  float l2[MAX_LEAVES];  // L2 factor on the gradient, 0 for none
+  int skip[MAX_LEAVES];  // 1: no step for an element whose gradient is exactly 0
+  unsigned long long* skipped;  // null, or the count of elements the skip left
 };
 
 namespace {
@@ -92,10 +103,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float R(float x) { return to_f(from_f<T>(x)); }
 
-template <typename T>
+template <typename T, bool RULES>
 __device__ __forceinline__ void update(float& p, float g, float& m, float& v,
-                                       const AdamScalars& s) {
+                                       const AdamScalars& s, float l2) {
   if (!s.bare) g = isnan(g) ? g : fminf(fmaxf(g, -CLIP), CLIP);
+  if (RULES && l2 != 0.0f) g = R<T>(__fadd_rn(g, R<T>(__fmul_rn(l2, p))));
   float u;
   if (s.kind == SGD) {
     u = g;
@@ -116,17 +128,24 @@ __device__ __forceinline__ void update(float& p, float g, float& m, float& v,
   p = R<T>(__fadd_rn(p, R<T>(__fmul_rn(u, s.neg_lr))));
 }
 
-template <typename T>
-__device__ __forceinline__ void update_one(T* p, const T* g, T* m, T* v, long long i,
-                                           const AdamScalars& s, bool moments) {
+// Returns 1 where the skip left the element, else 0.
+template <typename T, bool RULES>
+__device__ __forceinline__ int update_one(T* p, const T* g, T* m, T* v, long long i,
+                                          const AdamScalars& s, bool moments, float l2,
+                                          bool skip) {
+  const float gf = to_f(g[i]);
+  if (RULES && skip && gf == 0.0f) return 1;
   float pf = to_f(p[i]), mf = 0.0f, vf = 0.0f;
   if (moments) mf = to_f(m[i]), vf = to_f(v[i]);
-  update<T>(pf, to_f(g[i]), mf, vf, s);
+  update<T, RULES>(pf, gf, mf, vf, s, l2);
   p[i] = from_f<T>(pf);
   if (moments) m[i] = from_f<T>(mf), v[i] = from_f<T>(vf);
+  return 0;
 }
 
-template <typename T>
+// RULES: some leaf of the launch has an L2 factor or the skip; without
+// (lego's leaves) the kernel is the plain update, none of their code compiled in.
+template <typename T, bool RULES>
 __global__ void __launch_bounds__(THREADS) adam_kernel(const AdamArgs args) {
   const int tile = blockIdx.x;
   int lo = 0, hi = args.n_leaves - 1;  // the last leaf whose first tile is <= tile
@@ -139,6 +158,9 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(const AdamArgs args) {
   const int len = left < TILE ? (int)left : TILE;
   const AdamScalars& s = args.s;
   const bool moments = s.kind != SGD;
+  const float l2 = RULES ? args.l2[lo] : 0.0f;
+  const bool skip = RULES && args.skip[lo] != 0;  // the same for the whole block
+  int kept = 0;  // elements the skip left as they were, this thread's
   T* p = static_cast<T*>(args.p[lo]) + base;
   const T* g = static_cast<const T*>(args.g[lo]) + base;
   T* m = moments ? static_cast<T*>(args.m[lo]) + base : nullptr;
@@ -172,9 +194,14 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(const AdamArgs args) {
       if (i < n_vec) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
+          const float gf = to_f(gv[k].x[e]);
+          if (skip && gf == 0.0f) {  // the loaded values are stored back as they were
+            ++kept;
+            continue;
+          }
           float pf = to_f(pv[k].x[e]), mf = moments ? to_f(mv[k].x[e]) : 0.0f;
           float vf = moments ? to_f(vv[k].x[e]) : 0.0f;
-          update<T>(pf, to_f(gv[k].x[e]), mf, vf, s);
+          update<T, RULES>(pf, gf, mf, vf, s, l2);
           pv[k].x[e] = from_f<T>(pf);
           if (moments) mv[k].x[e] = from_f<T>(mf), vv[k].x[e] = from_f<T>(vf);
         }
@@ -187,13 +214,27 @@ __global__ void __launch_bounds__(THREADS) adam_kernel(const AdamArgs args) {
     }
     done = n_vec * VEC;
   }
-  for (int i = done + threadIdx.x; i < len; i += THREADS) update_one(p, g, m, v, i, s, moments);
+  for (int i = done + threadIdx.x; i < len; i += THREADS)
+    kept += update_one<T, RULES>(p, g, m, v, i, s, moments, l2, skip);
+  if (skip && args.skipped != nullptr) {  // block-uniform: every thread is here
+    __shared__ int warp_kept[THREADS / 32];
+    kept = __reduce_add_sync(0xffffffffu, kept);
+    if ((threadIdx.x & 31) == 0) warp_kept[threadIdx.x >> 5] = kept;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long block = 0;
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) block += warp_kept[w];
+      if (block) atomicAdd(args.skipped, block);
+    }
+  }
 }
 
 }  // namespace
 
 // The table's layout, for the ctypes mirror's check: sizeof(AdamArgs), the
-// offsets of n_leaves, tile_start, numel, p, g, m, v, then MAX_LEAVES and TILE.
+// offsets of n_leaves, tile_start, numel, p, g, m, v, then MAX_LEAVES and
+// TILE, then the offsets of l2, skip and skipped.
 extern "C" void adam_layout(int* out) {
   out[0] = (int)sizeof(AdamArgs);
   out[1] = (int)offsetof(AdamArgs, n_leaves);
@@ -205,19 +246,26 @@ extern "C" void adam_layout(int* out) {
   out[7] = (int)offsetof(AdamArgs, v);
   out[8] = MAX_LEAVES;
   out[9] = TILE;
+  out[10] = (int)offsetof(AdamArgs, l2);
+  out[11] = (int)offsetof(AdamArgs, skip);
+  out[12] = (int)offsetof(AdamArgs, skipped);
 }
 
 // One launch over args->tile_start[args->n_leaves] tiles; bf16 selects the
-// bfloat16 instantiation. Returns cudaGetLastError().
-extern "C" int launch_adam(const AdamArgs* args, int bf16, void* stream) {
+// bfloat16 instantiation, rules the one with the per-leaf rules (set when
+// some leaf of the launch has an L2 factor or the skip). Returns
+// cudaGetLastError().
+extern "C" int launch_adam(const AdamArgs* args, int bf16, int rules, void* stream) {
   if (args->n_leaves < 1 || args->n_leaves > MAX_LEAVES) return (int)cudaErrorInvalidValue;
   const int tiles = args->tile_start[args->n_leaves];
   if (tiles < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    adam_kernel<__nv_bfloat16><<<tiles, THREADS, 0, st>>>(*args);
+    if (rules) adam_kernel<__nv_bfloat16, true><<<tiles, THREADS, 0, st>>>(*args);
+    else adam_kernel<__nv_bfloat16, false><<<tiles, THREADS, 0, st>>>(*args);
   } else {
-    adam_kernel<float><<<tiles, THREADS, 0, st>>>(*args);
+    if (rules) adam_kernel<float, true><<<tiles, THREADS, 0, st>>>(*args);
+    else adam_kernel<float, false><<<tiles, THREADS, 0, st>>>(*args);
   }
   return (int)cudaGetLastError();
 }

@@ -4,7 +4,7 @@
 // Plain PyTorch version: nerf_tpu_torch/ops/integrate.py::integrate_plain.
 //
 // What it computes, per ray of S samples: dists = (z[i+1] - z[i], tail 1e10)
-// * |d|; density relu or softplus; lam = dens * dist; alpha = 1 - exp(-lam);
+// * |d|; density relu, softplus or exp (act 0, 1, 2); lam = dens * dist; alpha = 1 - exp(-lam);
 // exclusive log-transmittance sum_{j<i} log(exp(-lam_j) + 1e-10), each term
 // formed as a stable logaddexp; T = exp(.); w = alpha * T, zeroed where
 // T < ert (ERT, when ert > 0); rgb = sum w * sigmoid(rgb_raw), depth =
@@ -62,12 +62,21 @@ constexpr int CHUNK_K = 2;
 constexpr bool STREAM_LOADS = false;
 constexpr int WARP_KERNEL_WARPS = 8;  // the previous design's block
 
+// The density of raw sigma: relu (act 0), softplus (1, in a form that does
+// not overflow) or exp (2, Instant-NGP's log-space density). act is the
+// same for every thread of a launch.
+__device__ __forceinline__ float density(float sg, int act) {
+  if (act == 1) return fmaxf(sg, 0.0f) + logf(1.0f + expf(-fabsf(sg)));
+  if (act == 2) return expf(sg);
+  return fmaxf(sg, 0.0f);
+}
+
 // The previous design: one warp per ray, 32 consecutive samples a round.
 __global__ void __launch_bounds__(WARP_KERNEL_WARPS * 32)
 integrate_warp_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
                  const float* __restrict__ rays_d, float* __restrict__ rgb_map,
                  float* __restrict__ depth, float* __restrict__ acc,
-                 float* __restrict__ weights, int N, int S, float ert, int softplus) {
+                 float* __restrict__ weights, int N, int S, float ert, int act) {
   const long long n = (long long)blockIdx.x * WARP_KERNEL_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (n >= N) return;  // whole warps leave together
@@ -90,9 +99,7 @@ integrate_warp_kernel(const float4* __restrict__ raw, const float* __restrict__ 
         q = raw[row + i];
         zi = z[row + i];
         const float dist = (i + 1 < S ? z[row + i + 1] - zi : 1e10f) * dnorm;
-        const float dens = softplus
-            ? fmaxf(q.w, 0.0f) + logf(1.0f + expf(-fabsf(q.w)))
-            : fmaxf(q.w, 0.0f);
+        const float dens = density(q.w, act);
         const float lam = dens * dist;
         alpha = 1.0f - expf(-lam);
         // log(1 - alpha + 1e-10) = logaddexp(-lam, log 1e-10), stably
@@ -178,7 +185,7 @@ __device__ __forceinline__ unsigned composite_ray(
     const float4* __restrict__ raw, const float* __restrict__ z,
     const float* __restrict__ rays_d, float* __restrict__ rgb_map, float* __restrict__ depth,
     float* __restrict__ acc, float* __restrict__ weights, long long n, int lane, int S,
-    float ert, int softplus) {
+    float ert, int act) {
   constexpr int CH = 32 * K;
   const long long row = n * S;
   unsigned cut = 0;
@@ -220,8 +227,7 @@ __device__ __forceinline__ unsigned composite_ray(
           const float zn = j + 1 < K ? cur.z[j + 1] : z_after;
           const float dist = (i + 1 < S ? zn - cur.z[j] : 1e10f) * dnorm;
           const float sg = cur.q[j].w;
-          const float dens = softplus ? fmaxf(sg, 0.0f) + logf(1.0f + expf(-fabsf(sg)))
-                                      : fmaxf(sg, 0.0f);
+          const float dens = density(sg, act);
           const float lam = dens * dist;
           alpha[j] = 1.0f - expf(-lam);
           // log(1 - alpha + 1e-10) = logaddexp(-lam, log 1e-10), stably
@@ -286,12 +292,12 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 integrate_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
                  const float* __restrict__ rays_d, float* __restrict__ rgb_map,
                  float* __restrict__ depth, float* __restrict__ acc,
-                 float* __restrict__ weights, int N, int S, float ert, int softplus) {
+                 float* __restrict__ weights, int N, int S, float ert, int act) {
   const long long n = (long long)blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (n >= N) return;  // whole warps leave together
   composite_ray<K, CHUNKED, false>(raw, z, rays_d, rgb_map, depth, acc, weights, n, lane, S,
-                                   ert, softplus);
+                                   ert, act);
 }
 
 // integrate_kernel that also adds the block's samples past ERT's cut to
@@ -301,7 +307,7 @@ __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 integrate_count_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
                        const float* __restrict__ rays_d, float* __restrict__ rgb_map,
                        float* __restrict__ depth, float* __restrict__ acc,
-                       float* __restrict__ weights, int N, int S, float ert, int softplus,
+                       float* __restrict__ weights, int N, int S, float ert, int act,
                        unsigned long long* __restrict__ ert_cut) {
   __shared__ unsigned warp_cut[WARPS_PER_BLOCK];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -309,7 +315,7 @@ integrate_count_kernel(const float4* __restrict__ raw, const float* __restrict__
   unsigned cut = 0;
   if (n < N)
     cut = composite_ray<K, CHUNKED, true>(raw, z, rays_d, rgb_map, depth, acc, weights, n,
-                                          lane, S, ert, softplus);
+                                          lane, S, ert, act);
   cut = __reduce_add_sync(FULL, cut);
   if (lane == 0) warp_cut[warp] = cut;
   __syncthreads();
@@ -323,18 +329,18 @@ integrate_count_kernel(const float4* __restrict__ raw, const float* __restrict__
 
 template <int K, bool CHUNKED>
 void launch(const void* raw, const void* z, const void* rays_d, void* rgb_map, void* depth,
-            void* acc, void* weights, int N, int S, float ert, int softplus, void* ert_cut,
+            void* acc, void* weights, int N, int S, float ert, int act, void* ert_cut,
             cudaStream_t s) {
   const int blocks = (N + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   if (ert_cut)
     integrate_count_kernel<K, CHUNKED><<<blocks, WARPS_PER_BLOCK * 32, 0, s>>>(
         (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
-        (float*)depth, (float*)acc, (float*)weights, N, S, ert, softplus,
+        (float*)depth, (float*)acc, (float*)weights, N, S, ert, act,
         (unsigned long long*)ert_cut);
   else
     integrate_kernel<K, CHUNKED><<<blocks, WARPS_PER_BLOCK * 32, 0, s>>>(
         (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
-        (float*)depth, (float*)acc, (float*)weights, N, S, ert, softplus);
+        (float*)depth, (float*)acc, (float*)weights, N, S, ert, act);
 }
 
 }  // namespace
@@ -346,12 +352,12 @@ void launch(const void* raw, const void* z, const void* rays_d, void* rgb_map, v
 // CUDA error code.
 extern "C" int launch_integrate(const void* raw, const void* z, const void* rays_d,
                                 void* rgb_map, void* depth, void* acc, void* weights,
-                                int N, int S, float ert, int softplus, void* ert_cut,
+                                int N, int S, float ert, int act, void* ert_cut,
                                 void* stream) {
   if (N <= 0 || S <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define NERF_INTEGRATE_ARGS \
-  raw, z, rays_d, rgb_map, depth, acc, weights, N, S, ert, softplus, ert_cut, s
+  raw, z, rays_d, rgb_map, depth, acc, weights, N, S, ert, act, ert_cut, s
   const int k = UP_FRONT ? (S + 31) / 32 : MAX_K + 1;
   switch (k) {
     case 1: launch<1, false>(NERF_INTEGRATE_ARGS); break;
@@ -371,11 +377,11 @@ extern "C" int launch_integrate(const void* raw, const void* z, const void* rays
 // The previous compositing kernel, for comparison: the same arguments and results.
 extern "C" int launch_integrate_warp(const void* raw, const void* z, const void* rays_d,
                                      void* rgb_map, void* depth, void* acc, void* weights,
-                                     int N, int S, float ert, int softplus, void* stream) {
+                                     int N, int S, float ert, int act, void* stream) {
   if (N <= 0 || S <= 0) return 0;
   const int blocks = (N + WARP_KERNEL_WARPS - 1) / WARP_KERNEL_WARPS;
   integrate_warp_kernel<<<blocks, WARP_KERNEL_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
-      (float*)depth, (float*)acc, (float*)weights, N, S, ert, softplus);
+      (float*)depth, (float*)acc, (float*)weights, N, S, ert, act);
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,8 @@ from ..utils import profiling
 from . import build
 
 _LOG_EPS = -23.025850929940457  # log(1e-10)
-_ACTIVATIONS = ("relu", "softplus")
+# the density activations, in the order of csrc/integrate.cu's ``act`` codes
+_ACTIVATIONS = ("relu", "softplus", "exp")
 _MAX_K, _CHUNK_K = 8, 2  # csrc/integrate.cu's MAX_K and CHUNK_K
 
 
@@ -45,16 +46,20 @@ def sample_terms(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
                  sigma_activation: str = "relu"):
     """Per sample, alpha and log(1 - alpha + 1e-10) (a stable logaddexp), as
     the kernel forms them: raw [N, S, 4], z_vals [N, S], rays_d [N, 3] ->
-    two [N, S] tensors."""
+    two [N, S] tensors. The density is relu(sigma), softplus(sigma) as
+    max(sigma, 0) + log(1 + exp(-|sigma|)), or exp(sigma)."""
     if sigma_activation not in _ACTIVATIONS:
         raise ValueError(f"unknown sigma activation: {sigma_activation!r}")
     sigma = raw[..., 3]
     dists = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
                        torch.full_like(z_vals[:, :1], 1e10)], dim=-1)
     dists = dists * torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    dens = torch.clamp_min(sigma, 0.0)
-    if sigma_activation == "softplus":  # in the kernel's form
-        dens = dens + torch.log(1.0 + torch.exp(-torch.abs(sigma)))
+    if sigma_activation == "exp":
+        dens = torch.exp(sigma)
+    else:
+        dens = torch.clamp_min(sigma, 0.0)
+        if sigma_activation == "softplus":  # in the kernel's form
+            dens = dens + torch.log(1.0 + torch.exp(-torch.abs(sigma)))
     lam = dens * dists
     hi = torch.clamp_min(-lam, _LOG_EPS)
     lo = torch.clamp_max(-lam, _LOG_EPS)
@@ -215,7 +220,7 @@ def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation
     weights = torch.empty((N, S), **kw)
     rc = fn(raw.data_ptr(), z_vals.data_ptr(), rays_d.data_ptr(), rgb_map.data_ptr(),
             depth.data_ptr(), acc.data_ptr(), weights.data_ptr(), N, S,
-            float(ert_threshold), int(sigma_activation == "softplus"), *extra,
+            float(ert_threshold), _ACTIVATIONS.index(sigma_activation), *extra,
             torch.cuda.current_stream(raw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate kernel launch failed: CUDA error {rc}")

@@ -18,16 +18,20 @@ from .sampling import draw
 
 
 def density_activation(sigma: torch.Tensor, kind: str = "relu") -> torch.Tensor:
-    """raw sigma -> nonnegative density ("relu", or "softplus" for hash models)."""
+    """raw sigma -> nonnegative density: "relu" (the NeRF MLP), "softplus"
+    (the repo's hash-grid NeRF) or "exp" (Instant-NGP's network, whose
+    first density output is the log of the density)."""
     if kind == "relu":
         return torch.relu(sigma)
     if kind == "softplus":
         return F.softplus(sigma)
+    if kind == "exp":
+        return torch.exp(sigma)
     raise ValueError(f"unknown sigma activation: {kind!r}")
 
 
-# raw sigma fill for masked-out samples: exactly zero density under both
-# activations (relu(-1e4) = 0; softplus(-1e4) underflows to 0)
+# raw sigma fill for masked-out samples: exactly zero density under every
+# activation (relu(-1e4) = 0; softplus(-1e4) and exp(-1e4) underflow to 0)
 EMPTY_SIGMA_RAW = -1e4
 
 

@@ -18,7 +18,11 @@ other shape than the fused kernel's (``supports``; ``query_mlp``): its
 encodings and MLP in plain PyTorch, as JAX's ``query_network_xla``. A
 KiloNeRF model (``network_type == "kilonerf"``) queries its voxel-routed
 networks (``ops/kilonerf.py``) for both passes, and its grid-rebuild density
-drops no point.
+drops no point. Instant-NGP's network (``network_type == "ngp"``,
+``models/ngp.py``) is one network for the one pass it renders
+(``N_importance`` 0: ``params`` is ``{"coarse": net}``), queried by
+``query_ngp``: the hash encoder's gather (B4) over its own box, the
+spherical harmonics of the direction, its two MLPs in plain PyTorch.
 
 Compaction (``RenderOptions.ess_compaction`` > 0, evaluation only): the
 fine pass evaluates only the samples that lie in occupied voxels
@@ -43,6 +47,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
 import torch
 
 from ..models.encoders import freq_encode, freq_out_dim
+from ..models import ngp as ngp_model
 from ..models.hashgrid import hashgrid_encode, table_shape
 from ..models.nerf_mlp import apply_nerf_mlp
 from ..ops.fused_mlp import (KERNEL_DTYPES, fused_nerf_eval, fused_nerf_eval_plain,
@@ -76,8 +81,9 @@ class RenderOptions:
     # the fine pass's compaction capacity as a fraction of its points; 0 is
     # off, -1 is "auto" (resolve_compaction calibrates it per checkpoint)
     ess_compaction: float = 0.0
-    # the network family: "nerf" (coarse + fine MLPs) or "kilonerf" (one
-    # voxel-routed grid of tiny MLPs, ops/kilonerf.py, for both passes)
+    # the network family: "nerf" (coarse + fine MLPs), "kilonerf" (one
+    # voxel-routed grid of tiny MLPs, ops/kilonerf.py, for both passes) or
+    # "ngp" (Instant-NGP's network, models/ngp.py, one pass)
     network_type: str = "nerf"
     kilo_grid_size: int = 16
     kilo_hidden: int = 32
@@ -94,6 +100,8 @@ class RenderOptions:
     hash_scale: float = 1.3819
     hash_dtype: str = "bfloat16"
     hash_layout: str = "corner"
+    # the hash box [-hash_bound, hash_bound]^3
+    hash_bound: float = 2.0
     sigma_activation: str = "relu"
     mlp_depth: int = 8
     mlp_width: int = 256
@@ -115,13 +123,25 @@ class RenderOptions:
         return self.network_type == "kilonerf"
 
     @property
+    def ngp(self) -> bool:
+        return self.network_type == "ngp"
+
+    def ngp_shapes(self):
+        """Instant-NGP's layers, (fan_in, fan_out) by MLP."""
+        return ngp_model.layer_shapes(self.input_ch)
+
+    @property
     def input_ch(self) -> int:
         if self.hashgrid:
             return self.hash_levels * self.hash_features
         return freq_out_dim(3, self.xyz_freqs)
 
     def model_shape(self) -> Dict[str, Any]:
-        """The shapes ``train.checkpoint.load_params`` reads a model by."""
+        """The shapes ``train.checkpoint.load_params`` reads a model by
+        (for Instant-NGP's network, its leaves' shapes under ``ngp``)."""
+        if self.ngp:
+            return dict(ngp=ngp_model.leaf_shapes(self.ngp_shapes(), table_shape(
+                self.hash_levels, self.hash_features, self.hash_log2_size, self.hash_layout)))
         return dict(D=self.mlp_depth, W=self.mlp_width, input_ch=self.input_ch,
                     input_ch_views=self.input_ch_views, skips=self.skips,
                     use_viewdirs=self.use_viewdirs,
@@ -136,12 +156,15 @@ class RenderOptions:
     @classmethod
     def from_cfg(cls, cfg) -> "RenderOptions":
         """The options of a ``nerf_tpu`` config, for the models the port
-        runs: the NeRF with the frequency or the hash-grid xyz encoder, and
-        KiloNeRF (``network_module: kilonerf``, its ``kilo`` node).
-        ``ess_compaction: auto`` becomes -1, as in the JAX package."""
+        runs: the NeRF with the frequency or the hash-grid xyz encoder,
+        KiloNeRF (``network_module: kilonerf``, its ``kilo`` node) and
+        Instant-NGP's network (``network_module: ngp``: the hash-grid
+        encoder, spherical-harmonics directions of degree 4, its published
+        widths, ``N_importance`` 0). ``ess_compaction: auto`` becomes -1, as in the
+        JAX package."""
         net = cfg.network
         module = str(cfg.get("network_module", "nerf"))
-        if module not in ("nerf", "kilonerf"):
+        if module not in ("nerf", "kilonerf", "ngp"):
             raise NotImplementedError(f"network_module {module!r} is not ported")
         kilo = cfg.get("kilo", {})
         xyz = net.xyz_encoder
@@ -158,8 +181,23 @@ class RenderOptions:
                 hash_base_res=int(xyz.get("base_resolution", 16)),
                 hash_scale=float(xyz.get("per_level_scale", 1.3819)),
                 hash_dtype=str(xyz.get("dtype", "bfloat16")),
-                hash_layout=str(xyz.get("layout", "corner")))
+                hash_layout=str(xyz.get("layout", "corner")),
+                hash_bound=float(xyz.get("bound", 2.0)))
+        dirs = net.dir_encoder
+        dir_kind = str(dirs.get("type", "frequency"))
+        if dir_kind not in ("frequency", "sphere_harmonics"):
+            raise NotImplementedError(f"dir encoder {dir_kind!r} is not ported")
         ta = cfg.task_arg
+        if module == "ngp":
+            if (kind == "frequency" or dir_kind != "sphere_harmonics"
+                    or int(dirs.get("degree", ngp_model.SH_DEGREE)) != ngp_model.SH_DEGREE):
+                raise ValueError("Instant-NGP's network takes the hash-grid xyz encoder and "
+                                 "sphere_harmonics directions of degree 4")
+            if int(ta.N_importance) != 0:
+                raise ValueError("Instant-NGP's network renders one pass: N_importance must be 0")
+        elif dir_kind != "frequency":
+            raise NotImplementedError("sphere_harmonics directions are wired for "
+                                      "network_module ngp only")
         return cls(
             **hash_kw,
             network_type=module,
@@ -182,7 +220,7 @@ class RenderOptions:
             ess_compaction=(-1.0 if str(cfg.get("ess_compaction", 0.0)) == "auto"
                             else float(cfg.get("ess_compaction", 0.0))),
             xyz_freqs=int(net.xyz_encoder.get("freq", 10)),
-            dir_freqs=int(net.dir_encoder.freq),
+            dir_freqs=int(dirs.get("freq", 4)),
             sigma_activation=str(net.get("sigma_activation", "relu")),
             mlp_depth=int(net.nerf.D),
             mlp_width=int(net.nerf.W),
@@ -269,6 +307,14 @@ def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions
             return density_activation(raw[:, 3], opts.sigma_activation)
 
         return kilo_density
+    if opts.ngp:
+        def ngp_density(pts: torch.Tensor) -> torch.Tensor:
+            cd = _DTYPES[opts.compute_dtype]
+            return torch.cat([density_activation(
+                ngp_model.density_outputs(kp, _xyz_embed(kp, p, opts), cd)[:, 0],
+                opts.sigma_activation) for p in pts.split(HASH_DENSITY_CHUNK)])
+
+        return ngp_density
     if opts.hashgrid or not supports(opts):
         def mlp_density(pts: torch.Tensor) -> torch.Tensor:
             out = []
@@ -292,12 +338,16 @@ def make_density_fn(kp: Dict[str, torch.Tensor], opts: RenderOptions
 
 
 def _xyz_embed(params, pts: torch.Tensor, opts: RenderOptions) -> torch.Tensor:
-    """The points' encoding: the hash grid's or the frequency encoding."""
+    """The points' encoding: the hash grid's over its box (span
+    ``hash.encode``: the index arithmetic, the gather, the interpolation)
+    or the frequency encoding."""
     if not opts.hashgrid:
         return freq_encode(pts, opts.xyz_freqs)
-    return hashgrid_encode(params["xyz_encoder"], pts, base_resolution=opts.hash_base_res,
-                           per_level_scale=opts.hash_scale, layout=opts.hash_layout,
-                           plain=not opts.use_fused_mlp)
+    with span("hash.encode"):
+        return hashgrid_encode(params["xyz_encoder"], pts, bbox_min=-opts.hash_bound,
+                               bbox_max=opts.hash_bound, base_resolution=opts.hash_base_res,
+                               per_level_scale=opts.hash_scale, layout=opts.hash_layout,
+                               plain=not opts.use_fused_mlp)
 
 
 def query_mlp(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
@@ -316,6 +366,19 @@ def query_mlp(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tens
     return raw.reshape(n, s, 4)
 
 
+def query_ngp(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: torch.Tensor,
+              opts: RenderOptions) -> torch.Tensor:
+    """pts [N, S, 3], unit viewdirs [N, 3] -> raw [N, S, 4] of Instant-NGP's
+    network: the hash encoding of the points, the spherical harmonics of
+    each ray's direction (once a ray), the density and colour MLPs."""
+    n, s, _ = pts.shape
+    emb = _xyz_embed(params, pts.reshape(-1, 3), opts)
+    sh = ngp_model.dir_encoding(viewdirs)
+    sh = sh[:, None, :].expand(n, s, sh.shape[-1]).reshape(n * s, -1)
+    raw = ngp_model.apply_ngp(params, emb, sh, _DTYPES[opts.compute_dtype])
+    return raw.reshape(n, s, 4)
+
+
 def kilo_config_from_opts(opts: RenderOptions) -> KiloConfig:
     """The routed networks' config; their box is ``KiloConfig``'s [-2, 2]^3,
     as the JAX package's."""
@@ -329,12 +392,14 @@ def query(params: Mapping[str, Any], pts: torch.Tensor, viewdirs: Optional[torch
           opts: RenderOptions) -> torch.Tensor:
     """pts [N, S, 3], viewdirs [N, 3] -> raw [N, S, 4] through the model's
     query: KiloNeRF's routed networks (zero directions when none are
-    given), the fused kernel (or its plain version) for the shape it
-    covers, else ``query_mlp``."""
+    given), Instant-NGP's network (``query_ngp``), the fused kernel (or its
+    plain version) for the shape it covers, else ``query_mlp``."""
     if opts.kilonerf:
         if viewdirs is None:
             viewdirs = pts.new_zeros(pts.shape[0], 3)
         return query_network_kilonerf(params, pts, viewdirs, kilo_config_from_opts(opts))
+    if opts.ngp:
+        return query_ngp(params, pts, viewdirs, opts)
     if opts.hashgrid or not supports(opts):
         return query_mlp(params, pts, viewdirs, opts)
     return query_network(params, pts, viewdirs, plain=not opts.use_fused_mlp,

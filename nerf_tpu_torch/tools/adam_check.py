@@ -124,7 +124,7 @@ def times(tx, params, st) -> dict:
     with torch.cuda.graph(graph):
         stream = torch.cuda.current_stream().cuda_stream
         for _ in range(reps):
-            lib.launch_adam(block.address, 0, stream)
+            lib.launch_adam(block.address, 0, 0, stream)
     graph.replay()
     l2_ms = _events_ms(graph.replay, 5) / reps
     flush = torch.ones(32 << 20, dtype=torch.float32, device=params[0].device)
@@ -133,7 +133,7 @@ def times(tx, params, st) -> dict:
         flush.sum()  # a read: the evicted lines leave clean, nothing to write back
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        lib.launch_adam(block.address, 0, torch.cuda.current_stream().cuda_stream)
+        lib.launch_adam(block.address, 0, 0, torch.cuda.current_stream().cuda_stream)
         e1.record()
         torch.cuda.synchronize()
         cold.append(e0.elapsed_time(e1))

@@ -94,12 +94,14 @@ def _set(tree: Tree, path: tuple, value):
     node[path[-1]] = value
 
 
-def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
+def load_params(model_dir: str, tag: str = "latest", ngp=None, **mlp_shape) -> Tree:
     """Read the {"coarse", "fine"} params of a ``nerf_tpu`` NeRF checkpoint as
     a JAX-layout pytree of float32 numpy arrays (weights [in, out]). A
     hash-grid model (``hash_table=`` its table's shape) gets its table too,
     its bfloat16 values widened to float32 exactly; a model without view
     directions (``use_viewdirs=False``) has output_linear for its heads.
+    Instant-NGP's network (``ngp=`` its [(path, shape)], the first leaves
+    of the port's file) is read as {"coarse": net}.
 
     Raises ``FileNotFoundError`` when the checkpoint is missing and
     ``ValueError`` when a leaf does not have the expected shape.
@@ -107,10 +109,10 @@ def load_params(model_dir: str, tag: str = "latest", **mlp_shape) -> Tree:
     path = os.path.join(model_dir, f"{tag}.npz")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
-    leaves = _mlp_leaf_shapes(**mlp_shape)
+    leaves = ngp if ngp is not None else _mlp_leaf_shapes(**mlp_shape)
     params: Tree = {}
     with np.load(path) as data:
-        for m, model in enumerate(("coarse", "fine")):
+        for m, model in enumerate(("coarse",) if ngp is not None else ("coarse", "fine")):
             for j, (sub, shape) in enumerate(leaves):
                 i = m * len(leaves) + j
                 arr = data[f"leaf_{i}"]

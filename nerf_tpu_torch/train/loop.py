@@ -35,6 +35,7 @@ from ..device import resolve_device
 from ..eval.metrics import psnr as psnr_fn
 from ..models.hashgrid import init_hashgrid
 from ..models.nerf_mlp import init_nerf_mlp
+from ..models.ngp import init_ngp
 from ..ops.kilonerf import init_kilonerf
 from ..parallel.mesh import (DataGroup, data_group, destroy, device_count, init_distributed,
                              mesh_world, replicate)
@@ -60,7 +61,13 @@ def init_nerf_params(generator: torch.Generator, opts: RenderOptions,
     ``init_kilonerf`` for both passes, the fine model a copy of the coarse
     one, so that the two train apart as the leaves of JAX's
     ``{"coarse": p, "fine": p}`` do (one shared tensor would be stepped
-    twice, with two Adam states)."""
+    twice, with two Adam states). Instant-NGP's network is one network,
+    ``{"coarse": net}`` (``init_ngp``: its table U(+-1e-4), the paper's,
+    then Xavier-uniform weights), for its one pass."""
+    if opts.ngp:
+        return {"coarse": init_ngp(generator, opts.ngp_shapes(), opts.hash_levels,
+                                   opts.hash_features, opts.hash_log2_size,
+                                   table_dtype=renderer._DTYPES[opts.hash_dtype], device=device)}
     if opts.kilonerf:
         p = init_kilonerf(generator, renderer.kilo_config_from_opts(opts), device)
         leaf = lambda t: t.detach().clone().requires_grad_(True)  # noqa: E731
@@ -87,7 +94,7 @@ def make_density_fn(params, opts: RenderOptions):
     through the fused kernel (or, for a model it does not cover, the plain
     query's encodings and MLP; for KiloNeRF, its networks with no point
     dropped), for grid rebuilds."""
-    dev = (params["l1"] if opts.kilonerf else params["pts_linears"][0])["w"].device
+    dev = tree_leaves(params)[0].device
     kp = renderer.kernel_params({"m": params}, opts, dev)["m"]
     return renderer.make_density_fn(kp, opts)
 

@@ -14,6 +14,14 @@ Python scalar to the array's dtype, and every operation rounds its result
 to bfloat16; optax's ``scale_by_schedule`` casts the learning rate to the
 update's dtype, and ``apply_updates`` adds in bfloat16.
 
+Instant-NGP's optimizer (arXiv:2201.05989 section 4) adds two per-leaf
+rules (``l2_reg``, ``skip_zero_grads``; the leaves by their tree paths,
+``bind``): an L2 term ``l2_reg * p`` added to the clipped gradient of each
+MLP weight ("w" outside the hash encoder) before the moments, and no step at
+all (p, mu and nu left as they are) for an element of the hash table whose
+gradient is exactly 0. β1, β2 and ε come from the config's ``train`` keys
+``beta1``, ``beta2`` and ``eps`` (0.9, 0.999 and 1e-8 by default).
+
 The state is kept as the JAX package stores it, so checkpoints carry over:
 Adam's count, ``mu``, ``nu`` (one tensor per parameter leaf, in the leaf's
 dtype) and the schedule's count.
@@ -31,7 +39,7 @@ given (``optim.leaves``) and those the kernel updated
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,13 +166,32 @@ class Optimizer:
 
     def __init__(self, schedule: Schedule, kind: str = "adam", weight_decay: float = 0.0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 bare: bool = False):
+                 bare: bool = False, l2_reg: float = 0.0, skip_zero_grads: bool = False):
         if kind not in adam.KINDS:
             raise ValueError(f"unknown optimizer {kind}")
         self.schedule, self.kind, self.weight_decay = schedule, kind, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.bare = bare
+        self.l2_reg, self.skip_zero_grads = l2_reg, skip_zero_grads
+        # each leaf's adam.Rule (``bind``); None: no leaf has a rule
+        self.rules: Optional[Tuple[adam.Rule, ...]] = None
         self._table = adam.Table()  # the kernel's launch tables, kept across steps
+
+    def bind(self, tree) -> None:
+        """Set each leaf's rule from its path in the parameter tree (the
+        order of ``tree_leaves``): the L2 term on "w" leaves outside
+        ``xyz_encoder``, the zero-gradient skip on the leaves inside it."""
+        if self.l2_reg == 0.0 and not self.skip_zero_grads:
+            self.rules = None
+            return
+        rules = []
+        for path, leaf in _leaf_paths(tree):
+            table = "xyz_encoder" in path
+            l2 = self.l2_reg if path[-1] == "w" and not table else 0.0
+            if leaf.dtype != torch.float32:
+                l2 = _rounded(l2, leaf.dtype)
+            rules.append(adam.Rule(l2, self.skip_zero_grads and table))
+        self.rules = tuple(rules)
 
     def init(self, params: Sequence[torch.Tensor]) -> OptState:
         sched = None if self.bare else 0
@@ -219,7 +246,8 @@ class Optimizer:
         def scalars_for(dtype):
             return adam.scalars(self.operands(s, dtype), self.kind, self.bare, s.rect, decay)
 
-        adam.adam(self._table, params, grads, state.mu, state.nu, scalars_for)
+        adam.adam(self._table, params, grads, state.mu, state.nu, scalars_for,
+                  self._rules(len(params)))
         profiling.count("optim.fused_leaves", len(params))
         self._advance(state, s)
 
@@ -231,17 +259,24 @@ class Optimizer:
         the kernel equals bit for bit on the card."""
         s = self.scalars(state)
         ops = {}
+        rules = self._rules(len(params)) or [adam.Rule()] * len(params)
         for i, (p, g) in enumerate(zip(params, grads)):
             if p.dtype not in ops:
                 ops[p.dtype] = self.operands(s, p.dtype)
-            o = ops[p.dtype]
+            o, rule = ops[p.dtype], rules[i]
+            keep = g != 0 if rule.skip else None  # the elements that take a step
             if not self.bare:
                 g = g.clamp(-CLIP, CLIP)
+            if rule.l2 != 0.0:
+                g = g + rule.l2 * p
             if self.kind == "sgd":
                 u = g
             else:
                 mu = o.omb1 * g + o.b1 * state.mu[i]
                 nu = o.omb2 * (g * g) + o.b2 * state.nu[i]
+                if keep is not None:
+                    mu = torch.where(keep, mu, state.mu[i])
+                    nu = torch.where(keep, nu, state.nu[i])
                 state.mu[i], state.nu[i] = mu, nu
                 mu_hat, nu_hat = mu / o.bc1, nu / o.bc2
                 if s.rect:
@@ -252,13 +287,31 @@ class Optimizer:
                     u = mu_hat
             if self.weight_decay > 0:
                 u = u + o.wd * p
-            p.add_(u * o.neg_lr)
+            if keep is None:
+                p.add_(u * o.neg_lr)
+            else:
+                p.copy_(torch.where(keep, p + u * o.neg_lr, p))
         self._advance(state, s)
+
+    def _rules(self, n: int) -> Optional[Tuple[adam.Rule, ...]]:
+        if self.rules is not None and len(self.rules) != n:
+            raise ValueError(f"the optimizer's rules are bound to {len(self.rules)} leaves, "
+                             f"given {n}")
+        return self.rules
 
     def _advance(self, state: OptState, s: StepScalars) -> None:
         state.count = s.count
         if state.sched_count is not None:
             state.sched_count += 1
+
+
+def _leaf_paths(tree, prefix: tuple = ()) -> list:
+    """(path, leaf) in ``tree_leaves``' order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaf_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaf_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
 
 
 def plain_adam(lr: float) -> Optimizer:
@@ -285,4 +338,7 @@ def make_optimizer(cfg) -> Optimizer:
         sched = multi_step_schedule(float(tr.lr), [int(m) * ep_iter for m in sc.milestones],
                                     float(sc.gamma))
     return Optimizer(sched, kind=str(tr.get("optim", "adam")),
-                     weight_decay=float(tr.get("weight_decay", 0.0)))
+                     weight_decay=float(tr.get("weight_decay", 0.0)),
+                     b1=float(tr.get("beta1", 0.9)), b2=float(tr.get("beta2", 0.999)),
+                     eps=float(tr.get("eps", 1e-8)), l2_reg=float(tr.get("l2_reg", 0.0)),
+                     skip_zero_grads=bool(tr.get("skip_zero_grads", False)))

@@ -39,12 +39,16 @@ from .optim import OptState, Optimizer
 
 @dataclasses.dataclass
 class TrainState:
-    params: Dict[str, Any]  # {"coarse": mlp_tree, "fine": mlp_tree}, leaves require grad
+    # {"coarse": mlp_tree, "fine": mlp_tree} ({"coarse": net} for Instant-NGP's
+    # one network), leaves require grad
+    params: Dict[str, Any]
     opt_state: OptState
     step: int
 
 
 def init_state(params: Dict[str, Any], tx: Optimizer) -> TrainState:
+    """The state at step 0; binds ``tx``'s per-leaf rules to the tree."""
+    tx.bind(params)
     return TrainState(params=params, opt_state=tx.init(tree_leaves(params)), step=0)
 
 
@@ -114,7 +118,8 @@ def _global_stats(grads: List[torch.Tensor], stats: Dict[str, torch.Tensor]
     all-reduce: the mean of the ranks' MSEs (equal shards) is the batch's
     MSE, and the PSNR is taken from that, not averaged."""
     keys = [k for k in ("loss_coarse", "loss_fine") if k in stats]
-    reduced = all_reduce_mean(list(grads) + [stats[k].detach() for k in keys])
+    with span("train.all_reduce"):
+        reduced = all_reduce_mean(list(grads) + [stats[k].detach() for k in keys])
     grads, losses = reduced[:len(grads)], dict(zip(keys, reduced[len(grads):]))
     losses["psnr"] = -10.0 * torch.log10(losses.get("loss_fine", losses["loss_coarse"]))
     losses["loss"] = sum(losses[k] for k in keys)

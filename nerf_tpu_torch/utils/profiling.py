@@ -29,8 +29,9 @@ is the switch, and nothing else turns them on:
   never synchronises: device time comes from the device trace.
 - ``count(name, n)``: a host counter, under the same switch.
 - ``spans()``, ``counters()`` (the host counters, the ``ops/`` launch
-  counters and the compositing kernel's device count of samples cut by
-  early ray termination; reading that count synchronises), ``reset()``.
+  counters, the compositing kernel's device count of samples cut by early
+  ray termination and the Adam kernel's of elements its zero-gradient skip
+  left; reading those counts synchronises), ``reset()``.
 - ``idle_by_span(device, spans, lo, hi)``: the device's idle time in
   [lo, hi] split by the innermost span the host was in at each instant.
 """
@@ -271,7 +272,8 @@ def counters() -> Dict[str, int]:
     """The host counters; each ``ops/`` kernel's launches
     (``launches.<wrapper>``); ``b3.ert_cut``, the compositing kernel's count
     of the samples whose weight early ray termination zeroed while spans
-    were on (a device read: it synchronises)."""
+    were on, and ``adam.skipped``, the Adam kernel's count of the elements
+    its zero-gradient skip left (device reads: they synchronise)."""
     from ..ops import adam, fused_mlp, fused_mlp_bwd, hash_gather, integrate
 
     with _lock:
@@ -284,19 +286,23 @@ def counters() -> Dict[str, int]:
     cut = integrate.ert_cut_count()
     if cut is not None:
         out["b3.ert_cut"] = cut
+    skipped = adam.skipped_count()
+    if skipped is not None:
+        out["adam.skipped"] = skipped
     return out
 
 
 def reset() -> None:
-    """Forget the records, the host counters and the device count (the
+    """Forget the records, the host counters and the device counts (the
     launch counters stay: their readers take differences)."""
-    from ..ops import integrate
+    from ..ops import adam, integrate
 
     with _lock:
         _records.clear()
         _counts.clear()
         _dropped[0] = 0
     integrate.ert_cut_reset()
+    adam.skipped_reset()
 
 
 def idle_by_span(device: Iterable[Tuple[float, float]],

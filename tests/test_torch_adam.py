@@ -79,15 +79,17 @@ def test_plan_takes_only_float32_and_bfloat16():
 
 
 def test_the_argument_block_fits_a_launchs_parameters():
-    size, n_leaves, tile_start, numel, p, g, m, v, max_leaves, tile = adam.layout()
+    size, n_leaves, tile_start, numel, p, g, m, v, max_leaves, tile, l2, skip, skipped = \
+        adam.layout()
     assert size <= 4096 and max_leaves == adam.MAX_LEAVES and tile == adam.TILE
     assert n_leaves == ctypes.sizeof(adam._Scalars) and tile_start == n_leaves + 4
-    assert numel % 8 == 0 and [g - p, m - g, v - m, size - v] == [8 * max_leaves] * 4
+    assert numel % 8 == 0 and [g - p, m - g, v - m, l2 - v] == [8 * max_leaves] * 4
+    assert [skip - l2, skipped - skip, size - skipped] == [4 * max_leaves, 4 * max_leaves, 8]
 
 
 def test_the_table_is_rebuilt_only_when_a_pointer_moves(monkeypatch):
     built = []
-    monkeypatch.setattr(adam, "_blocks", lambda p, m, v: built.append(1) or ["block"])
+    monkeypatch.setattr(adam, "_blocks", lambda p, m, v, r: built.append(1) or ["block"])
     params = [torch.zeros(3), torch.zeros(5)]
     mu, nu = [torch.zeros(3), torch.zeros(5)], [torch.zeros(3), torch.zeros(5)]
     table = adam.Table()
@@ -100,6 +102,10 @@ def test_the_table_is_rebuilt_only_when_a_pointer_moves(monkeypatch):
     assert len(built) == 2
     table.update(params, None, None)  # SGD: no moments
     assert len(built) == 3
+    rules = (adam.Rule(1e-6, False), adam.Rule(0.0, True))  # per-leaf rules bound
+    table.update(params, None, None, rules)
+    table.update(params, None, None, rules)
+    assert len(built) == 4
 
 
 def test_the_kernel_refuses_cpu_leaves_and_other_dtypes():

@@ -85,8 +85,10 @@ def test_density_activation():
     x = torch.tensor([-1e4, -1.0, 0.0, 2.0])
     assert density_activation(x, "relu").tolist() == [0.0, 0.0, 0.0, 2.0]
     assert density_activation(x, "softplus")[0] == 0.0
+    assert torch.equal(density_activation(x, "exp"), torch.exp(x))
+    assert density_activation(x, "exp")[0] == 0.0
     with pytest.raises(ValueError):
-        density_activation(x, "exp")
+        density_activation(x, "elu")
 
 
 def test_wrapper_on_cpu_is_the_plain_version():
