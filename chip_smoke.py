@@ -212,9 +212,12 @@ Phases, each printed with its elapsed seconds:
      uniform over frames 0-59, or over [0, 1] for the D-NeRF types; unit
      directions for SH): forward and backward of sum(out^2) through the
      kernels and through the plain path (plain=True) on the same tree:
-     outputs equal, each bf16 table's gradient per element within
-     hash_gather.scatter_add_tolerance of the plain scatter-add of the same
-     cotangent rows, every float32 leaf within ENC_LEAF_REL of its largest
+     outputs equal (the 3-D grids that take the hash encoder's kernels:
+     within twice their interp_tolerance, and the rows' cotangent of each
+     hash_interp_bwd equal to hash_interp_bwd_plain's on the same cotangent
+     and points), each bf16 table's gradient per
+     element within hash_gather.scatter_add_tolerance of the plain
+     scatter-add of the same cotangent rows, every float32 leaf within ENC_LEAF_REL of its largest
      |value|; B4 and B4' launched once a table under every hash-based type
      and never under frequency, SH, tri-plane and the frequency or tri-plane
      D-NeRF; each type's ms; B4 and B4' alone on the cuda_hashgrid_4d rows
@@ -292,7 +295,19 @@ Phases, each printed with its elapsed seconds:
      rays x 64 samples with the launch counters zeroed just before it (one
      launch each of B4, B4', B3 and Adam); the Adam kernel with the L2 and
      the zero-gradient skip, 2 steps equal to step_plain's bit for bit, its
-     skip count equal to the table gradient's zeros.
+     skip count equal to the table gradient's zeros; the step's launches
+     include one each of the hash encoder's three kernels;
+ 46. the hash encoder's kernels (nerf_tpu_torch/ops/hash_encode.py) on that
+     state's float32 table at 2^18 points, an eighth of them on cell faces,
+     the clamp's edge or outside the box (ngp_check.encoder): hash_index
+     equal to hashgrid_index on the card, hash_interp and hash_interp_bwd
+     equal to their plain versions, hash_interp within interp_tolerance of
+     encode_torch, one forward and backward of encode_fused with no host
+     synchronisation, its five launches and its table gradient within
+     scatter_add_tolerance; each kernel's time by CUDA events beside its
+     byte bound and its plain version (hash_index's: the PyTorch path's
+     index arithmetic itself), and the encoder's forward and backward on either path (rows of the kernels
+     line).
 Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
@@ -1046,6 +1061,40 @@ def ngp_phase(dev, smi):
         f"and the skip on {a['leaves']} leaves ({a['elements']} elements) equal to step_plain "
         f"bit for bit over {len(a['skipped'])} steps, {a['skipped'][0]} elements skipped a step "
         f"(the table gradient's zeros)")
+
+
+def encoder_kernels_phase(dev, smi):
+    """Phase 46: the hash encoder's kernels at ngp.train's shape
+    (tools/ngp_check.py ``encoder``); returns their rows of the kernel table."""
+    from nerf_tpu_torch.tools import ngp_check
+
+    t = ngp_check.encoder(dev)
+    c, times = t["check"], t["times"]
+    enc = times["encoder"]
+    log(f"hash encoder kernels on {smi}, {c['points']} points ({c['rows']} corner rows of 2 "
+        f"float32): hash_index equal to the PyTorch path; hash_interp equal to its plain "
+        f"version, worst err / interp_tolerance against encode_torch "
+        f"{c['interp_worst_over_tol']:.3g}; hash_interp_bwd equal to its plain version; "
+        f"encode_fused with no synchronisation, launches {c['forward']} forward, "
+        f"{c['backward']} backward, table gradient worst err / tolerance "
+        f"{c['grad_worst_over_tol']:.3g}")
+    for name in ("hash_index", "hash_interp", "hash_interp_bwd"):
+        k = times[name]
+        log(f"{name}: {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms ({k['bytes']} bytes), "
+            f"{100 * k['share_of_bound']:.1f}% of it; plain {k['plain_ms']:.4f} ms")
+    log(f"the encoder, fwd / fwd+bwd / host us a fwd+bwd: fused {enc['fused']['fwd_ms']:.4f} / "
+        f"{enc['fused']['fwd_bwd_ms']:.4f} ms / {enc['fused']['host_us']:.1f}, PyTorch path "
+        f"{enc['torch']['fwd_ms']:.4f} / {enc['torch']['fwd_bwd_ms']:.4f} ms / "
+        f"{enc['torch']['host_us']:.1f} (B4 and B4' on both)")
+    err = c["interp_max_abs_err"]
+    return [{"name": name, "route": "cuda", "source": "nerf_tpu_torch/csrc/hash_gather.cu",
+             "replaces": "none (the hash encoder's index arithmetic and interpolation, which "
+                         "XLA fuses in the JAX package)", "launches": 1,
+             "max_abs_err": err if name == "hash_interp" else 0.0,
+             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+             "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+             "library_ms": None}
+            for name in ("hash_index", "hash_interp", "hash_interp_bwd")]
 
 
 def _clone_state(state):
@@ -3174,6 +3223,8 @@ ENC_CFGS = {"frequency": {"input_dim": 3, "freq": 10}, "sphere_harmonics": {}, "
             "cuda_hashgrid_coef": {}, "cuda_motion2d": {}, "dnerf": {}, "dnerf_ngp_mlp": {},
             "dnerf_ngp_tensorf": {}, "cuda_dnerf_ngp_tensorf": {}, "dnerf_mlp_tensorf": {}}
 ENC_NO_KERNEL = ("frequency", "sphere_harmonics", "triplane", "dnerf", "dnerf_mlp_tensorf")
+# the 3-D grids whose points do not require grad: calls of the hash encoder's kernels
+ENC_FUSED = {"hashgrid": 1, "cuda_hashgrid_latent": 1, "cuda_hashgrid_coef": 6}
 ENC_TIMED = {"cuda_hashgrid_4d": "corner, 2 bf16 (4 B) rows, D = 4",
              "hashgrid": "corner, 2 bf16 (4 B) rows, D = 3"}
 # a float32 leaf's gradient through the kernels against the plain path: the
@@ -3206,7 +3257,11 @@ def _encoder_inputs(etype, dev, gen):
 def encoder_phase(dev):
     """Phase 33: every factory type at JAX's defaults, forward and backward
     of sum(out^2) on the fine batch through the kernels and through the
-    plain path on the same tree: outputs equal, each table's gradient per
+    plain path on the same tree: outputs equal (where 3-D grids take the hash
+    encoder's kernels, ENC_FUSED, within twice their interp_tolerance: the
+    same products summed in another order; and each hash_interp_bwd's rows
+    equal to hash_interp_bwd_plain's on its cotangent and points, which the
+    table's gradient check below takes as given), each table's gradient per
     element within scatter_add_tolerance of the plain scatter-add of the
     same cotangent rows, each float32 leaf within ENC_LEAF_REL of its
     largest |value|; B4 and B4' launched once a table under every hash-based
@@ -3214,27 +3269,40 @@ def encoder_phase(dev):
     rows of two types (ENC_TIMED). Returns ({label: (gather, scatter)},
     {"gather": launches, "scatter": launches, "gather_err", "scatter_err"})."""
     import torch
-    from nerf_tpu_torch.models import encoders, hashgrid
-    from nerf_tpu_torch.ops import hash_gather
+    from nerf_tpu_torch.models import encoders
+    from nerf_tpu_torch.ops import hash_encode, hash_gather
     from nerf_tpu_torch.tree import tree_leaves
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    table_of, seen, gathered = {}, [], []
-    real_gather, real_scatter = hashgrid.gather_rows_diff, hash_gather.scatter_add_rows
+    table_of, seen, gathered, fused = {}, [], [], []
+    real_gather, real_scatter = hash_gather.gather_rows, hash_gather.scatter_add_rows
+    real_interp, real_interp_bwd = hash_encode.hash_interp, hash_encode.hash_interp_bwd
+    bwd_calls = []
 
-    def gather_spy(table, idx, plain=False):
+    def gather_spy(table, idx):
         table_of[idx.data_ptr()] = table.data_ptr()
-        gathered.append((table, idx, plain))
-        return real_gather(table, idx, plain)
+        gathered.append((table, idx))
+        return real_gather(table, idx)
 
     def scatter_spy(idx, cot, n_rows):
         seen.append((idx, cot, n_rows))
         return real_scatter(idx, cot, n_rows)
 
-    # the wrapper counts on its module-level name, which is the spy meanwhile
-    scatter_spy.launches = 0
-    hashgrid.gather_rows_diff, hash_gather.scatter_add_rows = gather_spy, scatter_spy
-    counters = (hash_gather.gather_rows, scatter_spy)
+    def interp_spy(rows, pts, lv):
+        fused.append((rows, pts, lv))
+        return real_interp(rows, pts, lv)
+
+    def interp_bwd_spy(g, pts, lv, dtype):
+        cot = real_interp_bwd(g, pts, lv, dtype)
+        bwd_calls.append((g, pts, lv, dtype, cot))
+        return cot
+
+    # the wrappers count on their module-level names, which are the spies meanwhile
+    gather_spy.launches = scatter_spy.launches = interp_spy.launches = 0
+    interp_bwd_spy.launches = 0
+    hash_gather.gather_rows, hash_gather.scatter_add_rows = gather_spy, scatter_spy
+    hash_encode.hash_interp, hash_encode.hash_interp_bwd = interp_spy, interp_bwd_spy
+    counters = (gather_spy, scatter_spy)
     totals = {"gather": 0, "scatter": 0, "gather_err": 0.0, "scatter_err": 0.0}
     timed = {}
     try:
@@ -3253,6 +3321,8 @@ def encoder_phase(dev):
                     t.grad = None
                 seen.clear()
                 gathered.clear()
+                fused.clear()
+                bwd_calls.clear()
                 before = [c.launches for c in counters]
                 out = fn(params, *args, plain=plain) if params is not None else fn(*args)
                 (out * out).sum().backward()
@@ -3269,13 +3339,25 @@ def encoder_phase(dev):
                 if mode:
                     out_p, grads_p, counts_p = out, grads, counts
                 else:
-                    out_k, grads_k, counts_k, seen_k, gathered_k = (out, grads, counts,
-                                                                    list(seen), list(gathered))
+                    out_k, grads_k, counts_k, seen_k, gathered_k, fused_k = (
+                        out, grads, counts, list(seen), list(gathered), list(fused))
+                    bwd_k = list(bwd_calls)
             n_tables = sum(1 for t in leaves if t.dtype == torch.bfloat16)
             check(out_k.shape == (ENC_POINTS, dim) and bool(torch.isfinite(out_k).all()),
                   f"{etype}: output {tuple(out_k.shape)}, dim {dim}")
-            check(torch.equal(out_k, out_p), f"{etype}: the kernels' output differs from the "
-                                             "plain path's")
+            check(len(fused_k) == len(bwd_k) == ENC_FUSED.get(etype, 0),
+                  f"{etype}: {len(fused_k)} forward and {len(bwd_k)} backward calls of the hash "
+                  "encoder's kernels")
+            for g, pts, lv, dtype, cot in bwd_k:
+                check(torch.equal(cot, hash_encode.hash_interp_bwd_plain(g, pts, lv, dtype)),
+                      f"{etype}: hash_interp_bwd's rows differ from hash_interp_bwd_plain's")
+            if fused_k:  # the 3-D grids' 8 products summed in another order
+                tol = max(float(hash_encode.interp_tolerance(*c).max()) for c in fused_k)
+                check(float((out_k - out_p).abs().max()) <= 2 * tol,
+                      f"{etype}: the kernels' output beyond twice interp_tolerance of plain")
+            else:
+                check(torch.equal(out_k, out_p), f"{etype}: the kernels' output differs from "
+                                                 "the plain path's")
             if etype in ENC_NO_KERNEL:
                 check(counts_k == [0, 0] and n_tables == 0, f"{etype}: launches {counts_k}")
             else:
@@ -3301,14 +3383,15 @@ def encoder_phase(dev):
                     rel = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                     leaf_rel = max(leaf_rel, rel)
                     check(rel <= ENC_LEAF_REL, f"{etype}: a float32 leaf {rel:.3g} from plain")
-            rows = sum(idx.shape[0] for _, idx, _ in gathered_k)
+            rows = sum(idx.shape[0] for _, idx in gathered_k)
             log(f"encoder {etype} (dim {dim}, {len(leaves)} leaves, {n_tables} bf16 tables, "
                 f"{rows} gathered rows): fwd+bwd {min(times[False]):.3f} ms through the kernels, "
-                f"{min(times[True]):.3f} ms plain; output equal; tables' worst err / tolerance "
-                f"{worst:.3g}; float32 leaves {leaf_rel:.3g} of their largest; B4/B4' launches "
-                f"{counts_k}")
+                f"{min(times[True]):.3f} ms plain; output "
+                f"{'within the sum-order bound' if fused_k else 'equal'}; tables' worst err / "
+                f"tolerance {worst:.3g}; float32 leaves {leaf_rel:.3g} of their largest; "
+                f"B4/B4' launches {counts_k}")
             if etype in ENC_TIMED:
-                table, idx, _ = gathered_k[0]
+                table, idx = gathered_k[0]
                 sidx, cot, n_rows = seen_k[0]
                 timed[etype] = (gather_times(f"{etype} ({ENC_TIMED[etype]})", table.detach(), idx),
                                 scatter_times(f"{etype} ({ENC_TIMED[etype]})", sidx, cot, n_rows,
@@ -3316,9 +3399,12 @@ def encoder_phase(dev):
             del built, params, args, leaves, wrt, out, grads, out_k, out_p, grads_k, grads_p
             seen_k.clear()
             gathered_k.clear()
+            fused_k.clear()
+            bwd_k.clear()
             torch.cuda.empty_cache()
     finally:
-        hashgrid.gather_rows_diff, hash_gather.scatter_add_rows = real_gather, real_scatter
+        hash_gather.gather_rows, hash_gather.scatter_add_rows = real_gather, real_scatter
+        hash_encode.hash_interp, hash_encode.hash_interp_bwd = real_interp, real_interp_bwd
     return timed, totals
 
 
@@ -4285,7 +4371,9 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
     log("phase 45: Instant-NGP's train path: B4 and B4' on its float32 table, a step's "
         "launches, Adam with the L2 and the skip")
     ngp_phase(dev, smi)
-    log("phase 46: done")
+    log("phase 46: the hash encoder's kernels at ngp.train's shape")
+    kernels += encoder_kernels_phase(dev, smi)
+    log("phase 47: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
              "sector_floor_ms", "encoder_launches",

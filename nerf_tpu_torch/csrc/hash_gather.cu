@@ -61,6 +61,39 @@
 // An index outside [0, R) traps (the launch then reports an error at the
 // next synchronisation) rather than reading or writing outside the table.
 //
+// The hash encoder's arithmetic around them (models/hashgrid.py's corner
+// layout at input dimension 3; plain PyTorch versions: nerf_tpu_torch/ops/
+// hash_encode.py). The JAX package leaves it to XLA, which fuses it into the
+// gather's neighbours; in eager PyTorch (models/hashgrid.py encode_torch) it is
+// ~40 elementwise launches a forward whose int64 temporaries write ~10 GB at
+// 2^18 points and 16 levels. Three kernels do it, one thread a (point, level),
+// the level fastest, so that a warp reads and writes whole rows of the
+// point-major features; each thread's 32-64 bytes of indices or table rows go
+// as 16-byte pieces at level-strided addresses, half a sector an instruction,
+// which holds hash_index and hash_interp_bwd near 40% of their bounds (PERF.md):
+// - hash_index_kernel: a point's cell at a level (the float32 steps of
+//   hashgrid_index as PyTorch runs them on the card: the box's corner
+//   subtracted, a product with the float reciprocal of its size, which is how
+//   PyTorch divides a tensor by a Python scalar there, the clamp to
+//   [0, 1 - 1e-6] as a float, the product with the resolution, floor) and its
+//   8 corner rows in product order, the level's base added: direct
+//   (sum c_d (res + 1)^d) on dense levels, the XOR of c_d prime_d in wrapping
+//   uint32 on hashed ones, mod T; 32 bytes out a thread. No int64 anywhere.
+// - hash_interp_kernel: the 8 rows B4 gathered (one 16-byte vector load or
+//   more), the corner weights (w0 w1) w2 of the recomputed fractions (1 - f
+//   for a 0 corner), the 8 products summed in float32 as the tree
+//   ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)), written point-major
+//   [N, L F]: the layout the MLP reads, so no permute's copy follows.
+// - hash_interp_bwd_kernel: g w for each corner, rounded once to the table's
+//   dtype (the cast the PyTorch path's .float() takes on the way back), as
+//   16-byte vectors, the rows B4' scatter-adds.
+// Each recomputes the fractions from the points (12 bytes a point) rather
+// than storing them (12 bytes a point and level). They are bound by bytes:
+// at 2^18 points, 16 levels and 8-byte rows, 137 MB, 305 MB and 305 MB.
+// Every product and sum is an explicit round-to-nearest intrinsic, so nvcc
+// contracts none into a fused multiply-add: the indices and the cotangent
+// rows equal the PyTorch path's bit for bit on the card.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no PyTorch headers; bound with ctypes).
 
@@ -544,6 +577,200 @@ int scatter_part(int part, const int* idx, const void* cot, float* acc, void* ou
   return (int)cudaGetLastError();
 }
 
+
+// ---- the hash encoder's arithmetic (hash_index, hash_interp, hash_interp_bwd)
+
+constexpr int MAX_LEVELS = 32;
+constexpr unsigned PRIME1 = 2654435761u, PRIME2 = 805459861u;
+
+struct Levels {
+  int n_levels;
+  unsigned dense;   // bit l: level l indexes its lattice directly
+  unsigned n_rows;  // T, a level's rows
+  float lo, inv, top;  // the box's corner, 1 / its size as a float, the clamp's top
+  int res[MAX_LEVELS];
+};
+
+// Thread t's point and level: the level fastest. False past the last.
+__device__ __forceinline__ bool point_level(const Levels& lv, int n, unsigned& i, unsigned& l) {
+  const unsigned t = blockIdx.x * THREADS + threadIdx.x, L = (unsigned)lv.n_levels;
+  if (t >= (unsigned)n * L) return false;
+  i = t / L;
+  l = t - i * L;
+  return true;
+}
+
+// Point i's cell at level l (c) and its place in it (f), in hashgrid_index's
+// float32 steps as PyTorch runs them on the card. A NaN coordinate stays NaN
+// through the clamp, as PyTorch's does; its cell is then 0.
+__device__ __forceinline__ void cell(const float* __restrict__ pts, unsigned i, unsigned l,
+                                     const Levels& lv, unsigned (&c)[3], float (&f)[3]) {
+  const float r = (float)lv.res[l];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float x = __fmul_rn(__fsub_rn(__ldg(pts + 3 * (size_t)i + d), lv.lo), lv.inv);
+    if (!(x != x)) x = fminf(fmaxf(x, 0.0f), lv.top);
+    const float xl = __fmul_rn(x, r), x0 = floorf(xl);
+    f[d] = __fsub_rn(xl, x0);
+    c[d] = (unsigned)(int)x0;
+  }
+}
+
+// The 8 corner weights in product order: (a0 a1) a2, a_d = f_d where corner
+// k's bit for d (4, 2, 1) is set, else 1 - f_d.
+__device__ __forceinline__ void corner_weights(const float (&f)[3], float (&w)[8]) {
+  const float g[3] = {__fsub_rn(1.0f, f[0]), __fsub_rn(1.0f, f[1]), __fsub_rn(1.0f, f[2])};
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    w[k] = __fmul_rn(__fmul_rn(k & 4 ? f[0] : g[0], k & 2 ? f[1] : g[1]), k & 1 ? f[2] : g[2]);
+}
+
+__global__ void __launch_bounds__(THREADS)
+hash_index_kernel(const float* __restrict__ pts, int* __restrict__ idx, int n, Levels lv) {
+  unsigned i, l;
+  if (!point_level(lv, n, i, l)) return;
+  unsigned c[3];
+  float f[3];
+  cell(pts, i, l, lv, c, f);
+  const bool dense = (lv.dense >> l) & 1u;
+  const unsigned T = lv.n_rows, stride = (unsigned)lv.res[l] + 1u, base = l * T;
+  const bool pow2 = (T & (T - 1u)) == 0u;
+  int r[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const unsigned a = c[0] + ((k >> 2) & 1), b = c[1] + ((k >> 1) & 1), e = c[2] + (k & 1);
+    const unsigned h = dense ? a + stride * (b + stride * e) : a ^ (b * PRIME1) ^ (e * PRIME2);
+    r[k] = (int)(base + (pow2 ? h & (T - 1u) : h % T));
+  }
+  int4* out = reinterpret_cast<int4*>(idx) + ((size_t)l * n + i) * 2;
+  __stcs(out, make_int4(r[0], r[1], r[2], r[3]));  // B4 reads them once, streaming
+  __stcs(out + 1, make_int4(r[4], r[5], r[6], r[7]));
+}
+
+template <int EB>
+__device__ __forceinline__ float raw_to_float(typename VecOf<EB>::type v) {
+  if constexpr (EB == 2) return __uint_as_float((uint32_t)v << 16);
+  else return __uint_as_float(v);
+}
+
+// Rows of F elements of EB bytes (2: bfloat16, 4: float32); 8 F EB is a
+// multiple of 16 for every F the launchers take.
+template <int EB, int F>
+__global__ void __launch_bounds__(THREADS)
+hash_interp_kernel(const void* __restrict__ rows, const float* __restrict__ pts,
+                   float* __restrict__ out, int n, Levels lv) {
+  constexpr int NV = 8 * F * EB / 16;
+  unsigned i, l;
+  if (!point_level(lv, n, i, l)) return;
+  unsigned c[3];
+  float f[3], w[8];
+  cell(pts, i, l, lv, c, f);
+  corner_weights(f, w);
+  union {
+    uint4 v[NV];
+    typename VecOf<EB>::type e[8 * F];
+  } u;
+  const uint4* src = static_cast<const uint4*>(rows) + ((size_t)l * n + i) * NV;
+#pragma unroll
+  for (int q = 0; q < NV; ++q) u.v[q] = __ldcs(src + q);  // read once, streaming
+  float* dst = out + ((size_t)i * lv.n_levels + l) * F;
+#pragma unroll
+  for (int j = 0; j < F; ++j) {
+    float p[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p[k] = __fmul_rn(raw_to_float<EB>(u.e[k * F + j]), w[k]);
+    dst[j] = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), __fadd_rn(p[2], p[3])),
+                       __fadd_rn(__fadd_rn(p[4], p[5]), __fadd_rn(p[6], p[7])));
+  }
+}
+
+template <int EB, int F>
+__global__ void __launch_bounds__(THREADS)
+hash_interp_bwd_kernel(const float* __restrict__ g, const float* __restrict__ pts,
+                       void* __restrict__ cot, int n, Levels lv) {
+  constexpr int NV = 8 * F * EB / 16;
+  unsigned i, l;
+  if (!point_level(lv, n, i, l)) return;
+  unsigned c[3];
+  float f[3], w[8], gv[F];
+  cell(pts, i, l, lv, c, f);
+  corner_weights(f, w);
+  const float* gi = g + ((size_t)i * lv.n_levels + l) * F;
+#pragma unroll
+  for (int j = 0; j < F; ++j) gv[j] = __ldcs(gi + j);
+  union {
+    uint4 v[NV];
+    typename VecOf<EB>::type e[8 * F];
+  } u;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int j = 0; j < F; ++j) {
+      const float v = __fmul_rn(gv[j], w[k]);
+      if constexpr (EB == 2) u.e[k * F + j] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+      else u.e[k * F + j] = __float_as_uint(v);
+    }
+  uint4* dst = static_cast<uint4*>(cot) + ((size_t)l * n + i) * NV;
+#pragma unroll
+  for (int q = 0; q < NV; ++q) __stcs(dst + q, u.v[q]);  // B4' reads them once
+}
+
+int make_levels(int n_levels, const int* res, unsigned dense, unsigned n_rows, float lo,
+                float inv, float top, Levels& lv) {
+  if (n_levels < 1 || n_levels > MAX_LEVELS || n_rows == 0) return (int)cudaErrorInvalidValue;
+  lv.n_levels = n_levels;
+  lv.dense = dense;
+  lv.n_rows = n_rows;
+  lv.lo = lo;
+  lv.inv = inv;
+  lv.top = top;
+  for (int l = 0; l < MAX_LEVELS; ++l) lv.res[l] = l < n_levels ? res[l] : 0;
+  return 0;
+}
+
+unsigned encoder_blocks(int n, int n_levels) {
+  return (unsigned)(((long long)n * n_levels + THREADS - 1) / THREADS);
+}
+
+// The interpolation (backward: bwd = 1) for rows of F elements of EB bytes.
+template <int EB, int F>
+void launch_interp(bool bwd, const void* a, const float* pts, void* b, int n, const Levels& lv,
+                   cudaStream_t s) {
+  const unsigned blocks = encoder_blocks(n, lv.n_levels);
+  if (bwd)
+    hash_interp_bwd_kernel<EB, F><<<blocks, THREADS, 0, s>>>(static_cast<const float*>(a), pts,
+                                                              b, n, lv);
+  else
+    hash_interp_kernel<EB, F><<<blocks, THREADS, 0, s>>>(a, pts, static_cast<float*>(b), n, lv);
+}
+
+template <int EB>
+int launch_interp_width(bool bwd, const void* a, const float* pts, void* b, int n,
+                        int n_features, const Levels& lv, cudaStream_t s) {
+  switch (n_features) {
+    case 1: launch_interp<EB, 1>(bwd, a, pts, b, n, lv, s); break;
+    case 2: launch_interp<EB, 2>(bwd, a, pts, b, n, lv, s); break;
+    case 4: launch_interp<EB, 4>(bwd, a, pts, b, n, lv, s); break;
+    case 8: launch_interp<EB, 8>(bwd, a, pts, b, n, lv, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+int encoder_interp(bool bwd, const void* a, const float* pts, void* b, int n, int n_levels,
+                   const int* res, unsigned dense, unsigned n_rows, float lo, float inv,
+                   float top, int elem_bytes, int n_features, cudaStream_t s) {
+  Levels lv;
+  int err = make_levels(n_levels, res, dense, n_rows, lo, inv, top, lv);
+  if (err) return err;
+  if (n < 0 || (long long)n * n_levels > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (elem_bytes == 2) err = launch_interp_width<2>(bwd, a, pts, b, n, n_features, lv, s);
+  else if (elem_bytes == 4) err = launch_interp_width<4>(bwd, a, pts, b, n, n_features, lv, s);
+  else err = (int)cudaErrorInvalidValue;
+  return err ? err : (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // table [n_rows, row_bytes] (any dtype), idx [n] int32 -> out [n, row_bytes].
@@ -641,4 +868,49 @@ extern "C" int launch_scatter_add_rows_atomic(const int* idx, const void* cot, f
     round_to_bf16_kernel<<<blocks_for(n_acc), THREADS, 0, s>>>(
         acc, static_cast<__nv_bfloat16*>(out), n_acc);
   return (int)cudaGetLastError();
+}
+
+// The hash encoder's levels, passed to each of its three launches:
+// n_levels resolutions (at most MAX_LEVELS) from the host array res, the
+// dense levels' bits, T rows a level, the box's corner lo, inv = 1 / its size
+// (a float computed as PyTorch computes a Python scalar's reciprocal), the
+// clamp's top (the float nearest 1 - 1e-6). pts [n, 3] float32, 4-byte
+// aligned. Each returns the CUDA error of its launch (0 on success), or
+// cudaErrorInvalidValue.
+
+// idx [n_levels, n, 8] int32 (16-byte aligned): each point's 8 corner rows
+// at each level, in product order, plus the level's base l T.
+extern "C" int launch_hash_index(const float* pts, int* idx, int n, int n_levels,
+                                 const int* res, unsigned dense, unsigned n_rows, float lo,
+                                 float inv, float top, void* stream) {
+  Levels lv;
+  const int err = make_levels(n_levels, res, dense, n_rows, lo, inv, top, lv);
+  if (err) return err;
+  if (n < 0 || (long long)n * n_levels > 0x7fffffffLL ||
+      (long long)n_levels * n_rows > 0x80000000LL)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  hash_index_kernel<<<encoder_blocks(n, n_levels), THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(pts, idx, n, lv);
+  return (int)cudaGetLastError();
+}
+
+// rows [n_levels n 8, F] of elem_bytes (2: bfloat16, 4: float32; 16-byte
+// aligned), F = n_features in {1, 2, 4, 8} -> out [n, n_levels F] float32.
+extern "C" int launch_hash_interp(const void* rows, const float* pts, float* out, int n,
+                                  int n_levels, const int* res, unsigned dense, unsigned n_rows,
+                                  float lo, float inv, float top, int elem_bytes, int n_features,
+                                  void* stream) {
+  return encoder_interp(false, rows, pts, out, n, n_levels, res, dense, n_rows, lo, inv, top,
+                        elem_bytes, n_features, static_cast<cudaStream_t>(stream));
+}
+
+// g [n, n_levels F] float32 -> cot [n_levels n 8, F] of elem_bytes (16-byte
+// aligned): g w for each corner, rounded once.
+extern "C" int launch_hash_interp_bwd(const float* g, const float* pts, void* cot, int n,
+                                      int n_levels, const int* res, unsigned dense,
+                                      unsigned n_rows, float lo, float inv, float top,
+                                      int elem_bytes, int n_features, void* stream) {
+  return encoder_interp(true, g, pts, cot, n, n_levels, res, dense, n_rows, lo, inv, top,
+                        elem_bytes, n_features, static_cast<cudaStream_t>(stream));
 }

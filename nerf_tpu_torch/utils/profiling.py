@@ -274,14 +274,15 @@ def counters() -> Dict[str, int]:
     of the samples whose weight early ray termination zeroed while spans
     were on, and ``adam.skipped``, the Adam kernel's count of the elements
     its zero-gradient skip left (device reads: they synchronise)."""
-    from ..ops import adam, fused_mlp, fused_mlp_bwd, hash_gather, integrate
+    from ..ops import adam, fused_mlp, fused_mlp_bwd, hash_encode, hash_gather, integrate
 
     with _lock:
         out = dict(_counts)
     for fn in (fused_mlp.fused_nerf_eval, fused_mlp.fused_nerf_eval_f32,
                fused_mlp_bwd.fused_nerf_bwd, fused_mlp_bwd.fused_nerf_bwd_f32,
                hash_gather.gather_rows, hash_gather.scatter_add_rows, integrate.integrate,
-               adam.adam):
+               adam.adam, hash_encode.hash_index, hash_encode.hash_interp,
+               hash_encode.hash_interp_bwd):
         out[f"launches.{fn.__name__}"] = int(getattr(fn, "launches", 0))
     cut = integrate.ert_cut_count()
     if cut is not None:

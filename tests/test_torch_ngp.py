@@ -333,6 +333,178 @@ def _pose_rays(pose, K):
     return image_rays(16, 16, K, pose)
 
 
+# --- the hash encoder's kernels, through their plain versions --------------
+
+def _encoder_case(dtype=torch.float32, n=3000, n_rows=1 << 19, features=2, seed=0):
+    """(resolutions, table shape, levels, table U(+-1), points): the yaml's
+    16 levels over [-1.5, 1.5]^3 (five dense, eleven hashed at T = 2^19),
+    an eighth of the points on cell faces, the clamp's edge or outside."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.ops import hash_encode
+    from nerf_tpu_torch.tools import ngp_check
+
+    res = hashgrid.level_resolutions(16, 16, 1.3819)
+    shape = (16, n_rows, features)
+    lv = hash_encode.levels(res, n_rows, -1.5, 1.5)
+    gen = torch.Generator().manual_seed(seed)
+    table = (torch.rand(shape, generator=gen) * 2 - 1).to(dtype)
+    return res, shape, lv, table, ngp_check.encoder_points(lv, table.device, n, seed)
+
+
+def _corner_rows_in_python(p, lv):
+    """One point's corner rows [L * 8] as the hash encoder's note states them:
+    its cell in numpy's float32 steps, then the dense index or the XOR hash
+    in Python integers, mod T, plus the level's base."""
+    x = (np.float32(p) - np.float32(lv.bbox_min)) / np.float32(lv.bbox_max - lv.bbox_min)
+    x = np.clip(x, np.float32(0), np.float32(1.0 - 1e-6))
+    rows = []
+    for level, (r, dense) in enumerate(zip(lv.res, lv.dense)):
+        x0 = [int(v) for v in np.floor(x * np.float32(r))]
+        for k in range(8):
+            c = [x0[d] + (k >> (2 - d) & 1) for d in range(3)]
+            if dense:
+                i = c[0] + (r + 1) * c[1] + (r + 1) ** 2 * c[2]
+            else:
+                i = (c[0] ^ c[1] * 2654435761 ^ c[2] * 805459861) & 0xFFFFFFFF
+            rows.append(i % lv.n_rows + level * lv.n_rows)
+    return rows
+
+
+@pytest.mark.parametrize("n_rows", [1 << 19, 300_000, 1 << 13])
+def test_hash_index_plain_is_the_torch_paths_index(n_rows):
+    """2^19 rows (the yaml's), 300,000 (no power of two) and 2^13, at which
+    only the coarsest level is dense: the PyTorch path's corner rows, and on
+    points at cell faces, the clamp's edge, outside and inside the box, the
+    module's contract computed in Python integers."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.ops import hash_encode
+
+    res, shape, lv, _, pts = _encoder_case(n_rows=n_rows)
+    assert any(lv.dense) and not all(lv.dense)
+    want, _ = hashgrid.hashgrid_index(shape, pts, res, -1.5, 1.5, "corner")
+    got = hash_encode.hash_index_plain(pts, lv)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    rows = got.reshape(16, -1, 8)
+    for i in list(range(60)) + list(range(pts.shape[0] - 60, pts.shape[0])):
+        assert rows[:, i].reshape(-1).tolist() == _corner_rows_in_python(pts[i].numpy(), lv)
+
+
+def _spy_scatter(monkeypatch):
+    from nerf_tpu_torch.ops import hash_gather
+
+    seen, real = [], hash_gather.scatter_add_rows_plain
+
+    def spy(idx, cot, n_rows):
+        seen.append((idx, cot))
+        return real(idx, cot, n_rows)
+
+    monkeypatch.setattr(hash_gather, "scatter_add_rows_plain", spy)
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_encoder_on_plain_versions_matches_the_torch_path(dtype, monkeypatch):
+    """``encode_fused`` on CPU tensors (``hash_index``, B4, ``hash_interp``
+    and their backward in their plain versions) against ``encode_torch``:
+    the features within ``interp_tolerance`` (the 8 products summed in
+    another order), the indices, the rows' cotangent and the table's
+    gradient bit for bit."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.ops import hash_encode, hash_gather
+
+    res, shape, lv, table, pts = _encoder_case(dtype)
+    seen = _spy_scatter(monkeypatch)
+    g = torch.randn((pts.shape[0], 32), generator=torch.Generator().manual_seed(5))
+    grads, outs = [], []
+    for fn in (lambda t: hashgrid.encode_fused(t, pts, lv),
+               lambda t: hashgrid.encode_torch(t, pts, res, -1.5, 1.5, "corner", False)):
+        leaf = table.clone().requires_grad_(True)
+        out = fn(leaf)
+        grads.append(torch.autograd.grad(out, leaf, g)[0])
+        outs.append(out.detach())
+    rows = hash_gather.gather_rows_plain(table.reshape(-1, 2), seen[0][0])
+    tol = hash_encode.interp_tolerance(rows, pts, lv)
+    assert float(outs[1].abs().max()) > 0.1
+    assert bool(((outs[0] - outs[1]).abs() <= tol).all())
+    assert torch.equal(outs[0], hash_encode.hash_interp_plain(rows, pts, lv))
+    (idx_f, cot_f), (idx_t, cot_t) = seen
+    assert torch.equal(idx_f, idx_t) and cot_f.dtype == dtype and torch.equal(cot_f, cot_t)
+    assert torch.equal(cot_f, hash_encode.hash_interp_bwd_plain(g, pts, lv, dtype))
+    assert grads[0].dtype == dtype and torch.equal(grads[0], grads[1])
+
+
+class _Like:
+    """What ``takes_kernels`` reads of a tensor, with ``is_cuda`` set."""
+
+    def __init__(self, t, is_cuda=True):
+        self.is_cuda, self.dtype, self.shape, self.requires_grad = (is_cuda, t.dtype, t.shape,
+                                                                    t.requires_grad)
+        self.dim = t.dim
+
+
+@pytest.mark.parametrize("case,want", [
+    ("corner, 3-D, CUDA", True),
+    ("bfloat16 table", True),
+    ("the CPU", False),
+    ("plain", False),
+    ("cellpack", False),
+    ("4-D points (models/hash_variants.py hash4d)", False),
+    ("2-D points (models/hash_variants.py motion2d)", False),
+    ("points that require grad (the deformation field)", False),
+    ("a float16 table", False),
+    ("3 features", False),
+    ("33 levels", False)])
+def test_the_path_is_chosen_by_the_inputs(case, want):
+    from nerf_tpu_torch.models import hashgrid
+
+    table, pts = torch.zeros(16, 64, 2), torch.zeros(10, 3)
+    layout, plain, cuda = "corner", False, True
+    if case == "bfloat16 table":
+        table = table.bfloat16()
+    elif case == "the CPU":
+        cuda = False
+    elif case == "plain":
+        plain = True
+    elif case == "cellpack":
+        layout, table = "cellpack", torch.zeros(16, 8, 16)
+    elif case.startswith("4-D"):
+        pts = torch.zeros(10, 4)
+    elif case.startswith("2-D"):
+        pts = torch.zeros(10, 2)
+    elif case.startswith("points that"):
+        pts.requires_grad_(True)
+    elif case == "a float16 table":
+        table = table.half()
+    elif case == "3 features":
+        table = torch.zeros(16, 64, 3)
+    elif case == "33 levels":
+        table = torch.zeros(33, 64, 2)
+    assert hashgrid.takes_kernels(_Like(table), _Like(pts, cuda), layout, plain) is want
+
+
+def test_the_encoder_counts_its_points_and_the_fused_ones(monkeypatch):
+    """Under the profiler: ``hash.points`` every call, ``hash.fused_points``
+    the calls that take ``encode_fused`` (here forced onto the CPU, where it
+    runs the plain versions: the features are ``encode_fused``'s)."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.utils import profiling
+
+    res, _, lv, table, pts = _encoder_case(n=200)
+    params = {"table": table}
+    kw = dict(bbox_min=-1.5, bbox_max=1.5)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        profiling.reset()
+        hashgrid.hashgrid_encode(params, pts, **kw)
+        hashgrid.hashgrid_encode(params, pts[:50], **kw)
+        before = profiling.counters()
+        monkeypatch.setattr(hashgrid, "takes_kernels", lambda *a: True)
+        got = hashgrid.hashgrid_encode(params, pts, **kw)
+        after = profiling.counters()
+    assert before["hash.points"] == 250 and before.get("hash.fused_points", 0) == 0
+    assert after["hash.points"] == 450 and after["hash.fused_points"] == 200
+    assert torch.equal(got, hashgrid.encode_fused(table, pts, lv))
+
+
 # --- on the card -----------------------------------------------------------
 
 @pytest.fixture
@@ -436,3 +608,105 @@ def test_adam_kernel_with_l2_and_skip_equals_step_plain(cuda):
         for a, b in zip(tree_leaves(p1) + s1.opt_state.mu + s1.opt_state.nu,
                         tree_leaves(p2) + s2.opt_state.mu + s2.opt_state.nu):
             assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1 << 19, 300_000])
+def test_hash_index_kernel_equals_the_torch_path(cuda, n_rows):
+    """At the cell's 2^18 points, an eighth on cell faces (the last dense
+    level's and the first hashed one's among them), at the clamp's edge and
+    outside the box: bit for bit the PyTorch path's float32 steps on the
+    card, and the plain version; a T that is no power of two takes the
+    kernel's modulo."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.ops import hash_encode
+
+    res, shape, lv, _, pts = _encoder_case(n=1 << 18, n_rows=n_rows)
+    pts = pts.to(cuda)
+    assert lv.dense[4] and not lv.dense[5]
+    before = hash_encode.hash_index.launches
+    got = hash_encode.hash_index(pts, lv)
+    assert hash_encode.hash_index.launches == before + 1
+    want, _ = hashgrid.hashgrid_index(shape, pts, res, -1.5, 1.5, "corner")
+    assert got.shape == (16 * (1 << 18) * 8,) and torch.equal(got, want)
+    assert torch.equal(got, hash_encode.hash_index_plain(pts, lv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("features", [2, 1, 4, 8])
+def test_hash_interp_kernels_against_their_plain_versions(cuda, dtype, features):
+    """``hash_interp`` equal to its plain version (the same products summed
+    in the same tree) and within ``interp_tolerance`` of ``encode_torch``;
+    ``hash_interp_bwd`` equal to its plain version. The cell's 2^18 points
+    at 2 features, 2^15 at the others."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.ops import hash_encode, hash_gather
+
+    n = 1 << 18 if features == 2 else 1 << 15
+    res, shape, lv, table, pts = _encoder_case(dtype, n=n, features=features)
+    table, pts = table.to(cuda), pts.to(cuda)
+    idx = hash_encode.hash_index(pts, lv)
+    rows = hash_gather.gather_rows(table.reshape(-1, features), idx)
+    before = (hash_encode.hash_interp.launches, hash_encode.hash_interp_bwd.launches)
+    feats = hash_encode.hash_interp(rows, pts, lv)
+    g = torch.randn(feats.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    cot = hash_encode.hash_interp_bwd(g, pts, lv, dtype)
+    assert (hash_encode.hash_interp.launches, hash_encode.hash_interp_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert feats.shape == (n, 16 * features) and torch.equal(
+        feats, hash_encode.hash_interp_plain(rows, pts, lv))
+    want = hashgrid.encode_torch(table, pts, res, -1.5, 1.5, "corner", False)
+    assert bool(((feats - want).abs() <= hash_encode.interp_tolerance(rows, pts, lv)).all())
+    assert cot.dtype == dtype and torch.equal(
+        cot, hash_encode.hash_interp_bwd_plain(g, pts, lv, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_encoder_on_the_card(cuda, dtype, monkeypatch):
+    """One forward and backward of ``encode_fused`` at the cell's shape under
+    ``set_sync_debug_mode("error")``: one launch each of ``hash_index``, B4
+    and ``hash_interp`` forward, of ``hash_interp_bwd`` and B4' backward;
+    the indices and rows' cotangent that B4' takes equal to those of
+    ``encode_torch``'s backward, the table's gradient within
+    ``scatter_add_tolerance`` of the plain scatter-add of them."""
+    from nerf_tpu_torch.models import hashgrid
+    from nerf_tpu_torch.ops import hash_encode, hash_gather
+
+    res, shape, lv, table, pts = _encoder_case(dtype, n=1 << 18)
+    table, pts = table.to(cuda), pts.to(cuda)
+    seen, real = [], hash_gather.scatter_add_rows
+
+    def spy(idx, cot, n_rows):
+        seen.append((idx, cot))
+        return real(idx, cot, n_rows)
+
+    spy.launches = 0  # the wrapper counts on its module-level name, the spy meanwhile
+    monkeypatch.setattr(hash_gather, "scatter_add_rows", spy)
+    kernels = (hash_encode.hash_index, hash_gather.gather_rows, hash_encode.hash_interp,
+               hash_encode.hash_interp_bwd, spy)
+    g = torch.randn((pts.shape[0], 32), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    leaf = table.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    counts = [k.launches for k in kernels]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = hashgrid.encode_fused(leaf, pts, lv)
+        forward = [k.launches - c for k, c in zip(kernels, counts)]
+        (grad,) = torch.autograd.grad(out, leaf, g)
+        both = [k.launches - c for k, c in zip(kernels, counts)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert forward == [1, 1, 1, 0, 0] and both == [1, 1, 1, 1, 1]
+    leaf_t = table.clone().requires_grad_(True)
+    torch.autograd.grad(hashgrid.encode_torch(leaf_t, pts, res, -1.5, 1.5, "corner", False),
+                        leaf_t, g)
+    (idx, cot), (idx_t, cot_t) = seen
+    assert torch.equal(idx, idx_t) and cot.dtype == dtype and torch.equal(cot, cot_t)
+    want = hash_gather.scatter_add_rows_plain(idx, cot, shape[0] * shape[1])
+    tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+    assert grad.dtype == dtype
+    assert bool(((grad.reshape(want.shape).double() - want.double()).abs() <= tol).all())
