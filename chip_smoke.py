@@ -10,11 +10,10 @@ Phases, each printed with its elapsed seconds:
      wgmma kernels must not spill);
   3. each kernel against its plain PyTorch version on random inputs (the
      fused MLP on 65,536 points; integrate with and without ERT, relu,
-     softplus and exp, S = 64 and 192 at N = 8192 and 1024, also against the
-     previous (warp-round) integrate kernel); the fused MLP's wgmma path: one layer's
-     product against torch.matmul, 84,525 random points (5 rounds of the
-     persistent grid and a ragged tile) against the plain version and the
-     wmma forward, and every ragged prefix (1, 63, 64, 127, 128, 129,
+     softplus and exp, S = 64 and 192 at N = 8192 and 1024); the fused MLP's
+     wgmma path: one layer's product against torch.matmul, 84,525 random
+     points (5 rounds of the persistent grid and a ragged tile) against the
+     plain version, and every ragged prefix (1, 63, 64, 127, 128, 129,
      65,553 points) launched alone, exactly equal to the same rows of that
      launch; B2's weight-gradient product (MN-major operands) against
      torch.matmul;
@@ -28,12 +27,10 @@ Phases, each printed with its elapsed seconds:
      shapes and inputs (the first and the last render tile of the warm-up
      pose, coarse and fine, and one ESS lattice slab), and each kernel's
      time on the first tile's fine pass, with its bound from those inputs;
-     the fused MLP also on the first tile's coarse pass, beside the
-     wmma forward (timed in turns with it) and a chain of bf16 torch.matmul
-     calls with float32 epilogues (a yardstick, printed on its own line);
-     integrate on the first tile's fine and coarse passes timed in turns
-     with the previous kernel (new, old, old, new; CUDA graphs of launches),
-     which it must beat on the fine pass;
+     the fused MLP also on the first tile's coarse pass, beside a chain of
+     bf16 torch.matmul calls with float32 epilogues (a yardstick, printed on
+     its own line); integrate on the first tile's fine and coarse passes
+     (CUDA graphs of launches);
   6. the warm-up pose rendered through the plain versions; PSNR >= 40 dB;
   7. train: the committed epoch-49 lego state (params, Adam's moments and
      counts) copied to a temp directory and resumed through the trainer's
@@ -54,9 +51,9 @@ Phases, each printed with its elapsed seconds:
   9. 10 steps on the kernel path against 10 on the plain path from that
      state with the same batches;
  10. times: a window of warm train steps (ms per step, train rays/s, the
-     kernels' launches per step); B2 on the step's coarse and fine batches
-     timed in turns with the wmma backward, which it must beat, each
-     of its five launches alone, its bound and this design's byte floor;
+     kernels' launches per step); B2 on the step's coarse and fine batches,
+     each of its five launches alone, its bound and this design's byte
+     floor;
      on the fine batch also its plain version and a yardstick, its products
      as bf16 torch.matmul calls over the unpacked stash and gbuf;
  11. the hash-grid model, configs/nerf/lego_hashgrid_cellpack.yaml at full
@@ -82,13 +79,10 @@ Phases, each printed with its elapsed seconds:
  14. times: a window of warm hash-grid train steps, and the gather and the
      scatter-add on that step's fine batch (3,145,728 rows) beside their
      bounds, their plain versions and one PyTorch call each; the
-     scatter-add timed in turns with the previous (atomic) kernel, which it
-     must beat, its three launches alone and its design's byte floor; the
-     gather, exact against plain and the previous kernel on those rows, in
-     turns with the previous kernel (gather_rows_simple), which it must not
-     trail, beside its sector floor (hash_gather.gather_bytes);
-     integrate on the hash-grid serving tiles and the train step's batches
-     (N = 1024, S = 64 and 192) in turns with the previous kernel, and the
+     scatter-add's three launches alone and its design's byte floor; the
+     gather, exact against plain on those rows, beside its sector floor
+     (hash_gather.gather_bytes); integrate on the hash-grid serving tiles
+     and the train step's batches (N = 1024, S = 64 and 192), and the
      launches x (time - bound) of integrate per request and per step.
  15. a Blender-layout scene in a temp directory: the epoch-49 lego model
      rendered through the kernels at 800x800 (lego's camera_angle_x) at 8
@@ -126,11 +120,9 @@ Phases, each printed with its elapsed seconds:
      127, 128, 129, 65,553 and 196,608 (the backward with the knife-edge
      points' cotangents zeroed on both sides), and every ragged prefix
      launched alone against the same rows of the largest launch; on the
-     196,608 points B2-f32's weight-gradient launch timed in turns with the
-     previous (fmaf) one, which it must beat, its four launches, both
-     bounds and their shares, and each leaf's distance from the plain
-     version summed in float64 beside the fmaf kernel's and the plain
-     version's in float32;
+     196,608 points B2-f32's weight-gradient launch and its four launches
+     timed, both bounds and their shares, and each leaf's distance from the
+     plain version summed in float64 beside the plain version's in float32;
  21. the committed lego checkpoint served with network.dtype float32 at
      200x200 over HTTP (B1-f32 and B3 launched); its frame against the plain
      float32 path (>= 40 dB) and against the bf16 frame (printed); B1-f32 on
@@ -140,8 +132,7 @@ Phases, each printed with its elapsed seconds:
      the kernels against the plain float32 path with the same fine samples
      and masking, and that step's loss and gradients timed over 10 warm
      calls; B2-f32 on that step's inputs, and timed on its fine batch as in
-     phase 20 (its weight gradients in turns with the fmaf ones, which they
-     must beat);
+     phase 20;
  23. a D=4, W=64, skips [2], 6/2-band NeRF, with and without view
      directions, trained through the entry point (its MLP in plain PyTorch,
      B3 launched) and served over HTTP; its frame through B3 against B3's
@@ -223,8 +214,7 @@ Phases, each printed with its elapsed seconds:
      D-NeRF; each type's ms; B4 and B4' alone on the cuda_hashgrid_4d rows
      (16 corners x 16 levels x 196,608 = 50,331,648 rows of 4 bytes) and the
      hashgrid rows (25,165,824), each with its bound and library call, B4
-     exact against plain and the previous kernel there and in turns with
-     it, which B4 must beat, beside its sector floor (their
+     exact against plain there, beside its sector floor (their
      "encoder_shapes" in the kernels line);
  34. configs/img_fit/lego_view0.yaml on view 0 of phase 15's scene
      (input_ratio 0.5, N_pixels 8192) through python -m
@@ -248,9 +238,8 @@ Phases, each printed with its elapsed seconds:
      served; one step's gathers (exact) and scatter-adds against their plain
      versions and the whole step against the plain path (phase 13's gate);
      B4 and B4' on its fine batch (CORNER_ROWS rows of 4 bytes) beside their
-     bounds and library calls, B4 also exact against the previous kernel
-     there and in turns with it, which it must beat, beside its sector
-     floor ("corner_nerf" in the kernels line); ms a
+     bounds and library calls, B4 also exact against plain there, beside
+     its sector floor ("corner_nerf" in the kernels line); ms a
      step and a request beside the cellpack model's (phases 12, 14);
  38. each of the 7 other nerf_synthetic scene yamls trained SCENE_STEPS
      steps at full width from a fresh init on a 2-frame 800x800 scene
@@ -312,7 +301,7 @@ Phase 3 also holds the gather (exact) and the scatter-add against their
 plain versions on random tables of the config's sizes (cellpack, and the
 corner layout's [16 x 2^19, 2]) at 3,145,728 rows indexed as the hash
 encoder indexes random points, and the scatter-add, against its plain
-version and the previous kernel, at 3,145,728 rows of every index mix of
+version, at 3,145,728 rows of every index mix of
 tools/scatter_variants.py (all one row; runs of 31, 32, 33 and 1,000 equal
 indices across warp edges; sorted; uniform) in both layouts.
 The line before the last is {"kernels": [...]}, the last
@@ -357,7 +346,7 @@ PEAK_BYTES = 3.35e12
 #   set from 65,536 random points, held there but not on the path's tiles.)
 # - integrate (float32): atol 2e-5 on rgb/depth/acc/weights, as
 #   tests/test_integrate_kernel.py (sums of up to 192 terms in another order),
-#   against the plain version and the previous kernel; with ERT, a weight is
+#   against the plain version; with ERT, a weight is
 #   exactly 0 wherever the plain version's transmittance T is below the
 #   threshold, outside the band where the two float32 sums of log T (S terms
 #   in other orders) may put T on either side of it: |T - ert| <= ert
@@ -396,14 +385,13 @@ PEAK_BYTES = 3.35e12
 #   the gap grows step by step; how far bf16 itself moves the trajectory
 #   bounds that growth.
 # - hash-table gather (B4): exact, on random tables and on the path's rows,
-#   against the plain version and the previous kernel (gather_rows_simple).
+#   against the plain version.
 # - its scatter-add: per element within hash_gather.scatter_add_tolerance
 #   of the plain version (index_add_ into float32, rounded once to bf16):
 #   two float32 sums of the same n terms in other orders lie within
 #   2.01 n 2^-24 S of each other (S the terms' summed magnitudes), and each
 #   rounds once to bf16 (2^-8). The kernel's float32 reductions add in an
-#   order that changes from run to run, so its last bits do too. The same
-#   bound holds it against the previous (atomic) kernel's result.
+#   order that changes from run to run, so its last bits do too.
 # - one hash-grid train step, kernels against plain versions: loss within
 #   1e-4 relative; every gradient within max(1e-2, 2x its distance between
 #   the plain path and the plain path with float32 MLP weights) in relative
@@ -481,9 +469,6 @@ HASH_STEP_LOSS_REL, HASH_GRAD_REL = 1e-4, 1e-2
 HASH_SMALL_LEAF = 1e-4
 HASH_TRAIN_STEPS, HASH_STEP_WINDOW, HASH_N_TIMED = 200, 20, 16
 HASH_ROWS = 3_145_728  # a train step's fine batch: 1024 rays x 192 samples x 16 levels
-# B4 against the previous gather in turns on rows wider than 4 bytes: no
-# slower, beyond the turns' spread (B4 must be faster on 4-byte rows)
-GATHER_NO_SLOWER = 1.03
 # the hash-grid phases override only the dataset and the cadence
 HASH_TRAIN_OVERRIDES = ["train_dataset_module", "synthetic", "train_dataset.n_images", "100",
                         "train_dataset.H", "800", "train_dataset.W", "800", "train.epoch", "1",
@@ -573,19 +558,17 @@ def check_fused_max(errs):
 
 
 def integrate_errors(label, raw, z, d, ert, act):
-    """Hold integrate against integrate_plain and the previous kernel on one
-    input, with exact zeros past ERT's cut; returns max abs err."""
+    """Hold integrate against integrate_plain on one input, with exact zeros
+    past ERT's cut; returns max abs err."""
     import torch
     from nerf_tpu_torch.ops import integrate as tint
 
     keys = ("rgb_map", "depth_map", "acc_map", "weights")
     got = tint.integrate(raw, z, d, ert, True, act)
     want = tint.integrate_plain(raw, z, d, ert, True, act)
-    old = tint.integrate_warp(raw, z, d, ert, True, act)
     trans = tint.plain_transmittance(raw, z, d, act)
     torch.cuda.synchronize()
     err = max(float((got[k] - want[k]).abs().max()) for k in keys)
-    err_old = max(float((got[k] - old[k]).abs().max()) for k in keys)
     cut = ""
     if ert > 0:
         beyond, near = tint.past_the_cut(trans, ert)
@@ -595,10 +578,8 @@ def integrate_errors(label, raw, z, d, ert, act):
                f"{int(near.sum())} within rounding of it, {flips} of those on the other side")
         check(nonzero == 0, f"integrate: weights past ERT's cut are not 0 on {label}")
     log(f"integrate {label} N={z.shape[0]} S={z.shape[1]} ert={ert} {act}: "
-        f"max abs err {err:.3g} (tol {INTEGRATE_ATOL}), against the previous kernel "
-        f"{err_old:.3g}{cut}")
-    check(err <= INTEGRATE_ATOL and err_old <= INTEGRATE_ATOL,
-          f"integrate disagrees with integrate_plain or the previous kernel on {label}")
+        f"max abs err {err:.3g} (tol {INTEGRATE_ATOL}){cut}")
+    check(err <= INTEGRATE_ATOL, f"integrate disagrees with integrate_plain on {label}")
     return err
 
 
@@ -618,11 +599,10 @@ def integrate_bound(raw, z, d, ert, act):
             read / (nr * s))
 
 
-def integrate_turns(label, raw, z, d, ert, act):
-    """integrate and the previous kernel on one input, timed in turns (new,
-    old, old, new), each time a CUDA graph of launches (device time only:
-    the host's launch time exceeds the kernel's at N = 1024). Returns
-    {label, n, s, ms, old_ms, bound_ms, bound_by}."""
+def integrate_times(label, raw, z, d, ert, act):
+    """integrate on one input, timed twice, each time a CUDA graph of
+    launches (device time only: the host's launch time exceeds the kernel's
+    at N = 1024). Returns {label, n, s, ms, bound_ms, bound_by}."""
     import torch
     from nerf_tpu_torch.ops import integrate as tint
     from nerf_tpu_torch.tools.variants import graph_ms
@@ -632,19 +612,18 @@ def integrate_turns(label, raw, z, d, ert, act):
     args = [t.data_ptr() for t in (raw, z, d, *outs)] + [nr, s, ert,
                                                           tint._ACTIVATIONS.index(act)]
     lib = tint._lib()
-    calls = {"new": lambda: lib.launch_integrate(*args, None,  # no ERT counter
-                                                 torch.cuda.current_stream().cuda_stream),
-             "old": lambda: lib.launch_integrate_warp(*args,
-                                                      torch.cuda.current_stream().cuda_stream)}
-    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_integrate failed")
-    turns = [graph_ms(calls[k], reps=100) for k in ("new", "old", "old", "new")]
-    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+
+    def launch():  # no ERT counter
+        return lib.launch_integrate(*args, None, torch.cuda.current_stream().cuda_stream)
+
+    check(launch() == 0, "launch_integrate failed")
+    times = [graph_ms(launch, reps=100) for _ in range(2)]
+    ms = sum(times) / 2
     bound, bound_by, share = integrate_bound(raw, z, d, ert, act)
-    log(f"integrate {label}, N={nr} S={s} ert={ert} {act}: kernel {ms:.4f} ms, previous kernel "
-        f"{old_ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in turns)}), bound {bound:.4f} ms "
-        f"({bound_by}; {share:.3f} of the samples before the cut), {bound / ms:.3f} of it")
-    return {"label": label, "n": nr, "s": s, "ms": ms, "old_ms": old_ms, "bound_ms": bound,
-            "bound_by": bound_by}
+    log(f"integrate {label}, N={nr} S={s} ert={ert} {act}: kernel {ms:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in times)}), bound {bound:.4f} ms ({bound_by}; "
+        f"{share:.3f} of the samples before the cut), {bound / ms:.3f} of it")
+    return {"label": label, "n": nr, "s": s, "ms": ms, "bound_ms": bound, "bound_by": bound_by}
 
 
 def random_phase(kp, dev):
@@ -676,8 +655,8 @@ def random_phase(kp, dev):
 def wgmma_phase(kp, dev):
     """The fused kernel's wgmma path: one layer's product against
     torch.matmul; PERSISTENT_SIZE random points against the plain version
-    (returned for the gates) and against the wmma forward; each ragged
-    prefix launched alone against the same rows of that launch."""
+    (returned for the gates); each ragged prefix launched alone against the
+    same rows of that launch."""
     import torch
     from nerf_tpu_torch.ops import fused_mlp, fused_mlp_bwd
 
@@ -705,18 +684,12 @@ def wgmma_phase(kp, dev):
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     errs = fused_errors(f"random, {n // 128 + 1} tiles of 128", kp, pts, d)
     full = fused_mlp.fused_nerf_eval(kp, pts, d)
-    wmma = fused_mlp.fused_nerf_eval_wmma(kp, pts, d)
     for m in RAGGED_SIZES:
         part = fused_mlp.fused_nerf_eval(kp, pts[:m].contiguous(), d[:m].contiguous())
         check(bool(torch.equal(part, full[:m])), f"fused_nerf_eval on {m} points differs from "
               f"the same points inside a launch of {n}")
-    rel = ((full - wmma).abs() / (1.0 + wmma.abs())).flatten()
-    q = torch.quantile(rel, torch.tensor([0.99, 0.999], device=dev))
     log(f"fused_nerf_eval alone on {', '.join(map(str, RAGGED_SIZES))} points: exactly the "
-        f"rows of the {n}-point launch; against the wmma forward: rel p99 "
-        f"{float(q[0]):.3g}, p99.9 {float(q[1]):.3g}, max {float(rel.max()):.4g}")
-    check(float(q[0]) <= FUSED_P99_REL and float(q[1]) <= FUSED_P999_REL,
-          "fused_nerf_eval disagrees with the wmma forward")
+        f"rows of the {n}-point launch")
     return errs
 
 
@@ -853,16 +826,10 @@ def path_phase(service, random_errs):
         n = tp.shape[0]
         out = torch.empty((n, 4), device=dev)
         wg_args = [t.data_ptr() for t in (tp, td, wk["wpack"], wk["wbuf"], wk["bbuf"], out)]
-        wm_args = [t.data_ptr() for t in (tp, td, wk["wbuf"], wk["bbuf"], out)]
         check(lib.launch_fused_nerf(*wg_args, n, stream) == 0, "launch_fused_nerf failed")
-        check(lib.launch_fused_nerf_wmma(*wm_args, n, stream) == 0,
-              "launch_fused_nerf_wmma failed")
-        turns = []  # wgmma, wmma, wmma, wgmma
-        for fn in ("wgmma", "wmma", "wmma", "wgmma"):
-            call = ((lambda: lib.launch_fused_nerf(*wg_args, n, stream)) if fn == "wgmma"
-                    else (lambda: lib.launch_fused_nerf_wmma(*wm_args, n, stream)))
-            turns.append(time_ms(call, reps=10))
-        ms, wmma_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        times = [time_ms(lambda: lib.launch_fused_nerf(*wg_args, n, stream), reps=10)
+                 for _ in range(2)]
+        ms = sum(times) / 2
         wrapper_ms = time_ms(lambda: fused_mlp.fused_nerf_eval(wk, tp, td), reps=10)
         plain_ms = time_ms(lambda: fused_mlp.fused_nerf_eval_plain(wk, tp, td), reps=3)
         chain_ms = time_ms(lambda: matmul_chain(wk, tp, td), reps=5)
@@ -872,13 +839,12 @@ def path_phase(service, random_errs):
         flops = 2.0 * MACS_PER_POINT * n
         nbytes = FUSED_IO_BYTES * n + wk["wbuf"].numel() * 2 + wk["bbuf"].numel() * 4
         bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        log(f"fused_nerf_eval {label}, {n} pts: wgmma kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s, {bound / ms:.3f} of the bound), wmma kernel {wmma_ms:.4f} ms (turns "
-            f"{', '.join(f'{t:.4f}' for t in turns)}), wrapper {wrapper_ms:.4f} ms, plain "
+        log(f"fused_nerf_eval {label}, {n} pts: wgmma kernel {ms:.4f} ms ("
+            f"{', '.join(f'{t:.4f}' for t in times)}; {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{bound / ms:.3f} of the bound), wrapper {wrapper_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms")
         log(f"yardstick, {label}: a chain of bf16 torch.matmul calls with float32 epilogues "
             f"{chain_ms:.4f} ms (rel p99 {chain_rel:.3g} from the plain version)")
-        check(ms < wmma_ms, f"the wgmma kernel is not faster than the wmma kernel on {label}")
         if label == "first tile fine":
             kernels = [{"name": "fused_nerf_eval", "route": "cuda",
                         "source": "nerf_tpu_torch/csrc/fused_mlp.cu",
@@ -888,13 +854,11 @@ def path_phase(service, random_errs):
                         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES
                         else "bytes", "library_ms": None}]
 
-    fine = integrate_turns("lego tile fine", raw, z, d, ert, act)
-    b3_rows = [integrate_turns("lego tile coarse", *coarse_int, ert, act), fine]
+    fine = integrate_times("lego tile fine", raw, z, d, ert, act)
+    b3_rows = [integrate_times("lego tile coarse", *coarse_int, ert, act), fine]
     wrapper_ms = time_ms(lambda: tint.integrate(raw, z, d, ert, True, act), reps=50)
     plain_ms = time_ms(lambda: tint.integrate_plain(raw, z, d, ert, True, act), reps=20)
     log(f"integrate first tile fine: wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    check(fine["ms"] < fine["old_ms"],
-          "integrate is not faster than the previous kernel on the lego tile's fine pass")
     kernels.append({"name": "integrate", "route": "cuda",
                     "source": "nerf_tpu_torch/csrc/integrate.cu",
                     "replaces": "nerf_tpu/ops/integrate.py:24",
@@ -1297,14 +1261,11 @@ def train_times_phase(cfg, state, grid, data, dev, batches):
     for label, (kp, pts, dirs, g) in zip(("coarse", "fine"), batches):
         n = pts.shape[0]
         new = fused_mlp_bwd.launch_full(kp, pts, dirs, g, input_grads=False)
-        old = fused_mlp_bwd.fused_nerf_bwd_wmma(kp, pts, dirs, g, input_grads=False)
         args = list(new["args"])
-        check(lib.launch_fused_nerf_bwd(*args) == 0 and
-              lib.launch_fused_nerf_bwd_wmma(*old["args"]) == 0, "B2 launch failed")
+        check(lib.launch_fused_nerf_bwd(*args) == 0, "B2 launch failed")
         run_new = lambda: lib.launch_fused_nerf_bwd(*args)  # noqa: E731
-        run_old = lambda: lib.launch_fused_nerf_bwd_wmma(*old["args"])  # noqa: E731
-        turns = [time_ms(f, reps=10) for f in (run_new, run_old, run_old, run_new)]
-        ms, wmma_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        times = [time_ms(run_new, reps=10) for _ in range(2)]
+        ms = sum(times) / 2
         parts = {}
         for name, bit in (("forward + stash", 1), ("chain", 2), ("dW", 4), ("heads", 8),
                           ("reduce", 16)):
@@ -1318,13 +1279,11 @@ def train_times_phase(cfg, state, grid, data, dev, batches):
         # once by dW, the mask bits written and read once, the inputs once
         floor = (n * (2 * 2 * (STASH_WIDTH + GBUF_WIDTH) + 2 * MASK_BYTES + 40)
                  + 3 * WPACK_SIZE * 2) / PEAK_BYTES * 1e3
-        log(f"fused_nerf_bwd {label} batch, {n} pts: kernels {ms:.4f} ms ({turns[0]:.4f}, "
-            f"{turns[3]:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound), "
-            f"the wmma backward {wmma_ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}) in turns; "
+        log(f"fused_nerf_bwd {label} batch, {n} pts: kernels {ms:.4f} ms ({times[0]:.4f}, "
+            f"{times[1]:.4f}; {flops / ms / 1e9:.1f} TFLOP/s, {bound / ms:.3f} of the bound); "
             f"launches {', '.join(f'{k} {v:.4f}' for k, v in parts.items())} ms; bound "
             f"{bound:.4f} ms ({BWD_MACS_PER_POINT} MACs a point), this design's byte floor "
             f"{floor:.4f} ms")
-        check(ms < wmma_ms, f"B2 on the {label} batch is not faster than the wmma backward")
         out[label] = {"ms": ms, "bound_ms": bound, "bound_by":
                       "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"}
     kp, pts, dirs, g = batches[-1]
@@ -1390,44 +1349,37 @@ def _pattern_rows(dev, layout, n_rows_wanted, gen):
 
 
 def scatter_errors(label, idx, cot, n_rows):
-    """Hold scatter_add_rows against its plain version and the previous
-    (atomic) kernel; returns max abs err against the plain version."""
+    """Hold scatter_add_rows against its plain version; returns max abs err."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
     got = hash_gather.scatter_add_rows(idx, cot, n_rows)
-    worst, errs = [], []
-    for ref in (hash_gather.scatter_add_rows_plain(idx, cot, n_rows),
-                hash_gather.scatter_add_rows_atomic(idx, cot, n_rows)):
-        tol = hash_gather.scatter_add_tolerance(idx, cot, ref)
-        torch.cuda.synchronize()
-        err = (got.double() - ref.double()).abs()
-        worst.append(float((err / tol.clamp_min(1e-30)).max()))
-        errs.append(err)
+    want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
+    tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+    torch.cuda.synchronize()
+    err = (got.double() - want.double()).abs()
+    worst = float((err / tol.clamp_min(1e-30)).max())
     log(f"scatter_add_rows {label}: {idx.shape[0]} rows of {cot.shape[1]} {cot.dtype} into "
-        f"{n_rows}: max abs err {float(errs[0].max()):.4g}, {int((errs[0] > 0).sum())} elements "
-        f"differ, worst err / tolerance {worst[0]:.3g}, against the previous kernel "
-        f"{worst[1]:.3g} (float32 reductions: the order varies from run to run)")
-    check(got.dtype == cot.dtype and max(worst) <= 1.0,
-          f"scatter_add_rows disagrees with its plain version or the previous kernel on {label}")
-    return float(errs[0].max())
+        f"{n_rows}: max abs err {float(err.max()):.4g}, {int((err > 0).sum())} elements "
+        f"differ, worst err / tolerance {worst:.3g} (float32 reductions: the order varies from "
+        f"run to run)")
+    check(got.dtype == cot.dtype and worst <= 1.0,
+          f"scatter_add_rows disagrees with its plain version on {label}")
+    return float(err.max())
 
 
 def gather_errors(label, table, idx):
-    """Hold gather_rows against its plain version and the previous kernel
-    (gather_rows_simple): exact. Returns 0.0."""
+    """Hold gather_rows against its plain version: exact. Returns 0.0."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
     got = hash_gather.gather_rows(table, idx)
     want = hash_gather.gather_rows_plain(table, idx)
-    old = hash_gather.gather_rows_simple(table, idx)
     torch.cuda.synchronize()
-    same = bool(torch.equal(got, want)) and bool(torch.equal(got, old))
+    same = bool(torch.equal(got, want))
     log(f"gather_rows {label}: {idx.shape[0]} rows of {table.shape[1]} {table.dtype} from "
-        f"{table.shape[0]}: {'exact' if same else 'DIFFERS'} against the plain version and the "
-        f"previous kernel")
-    check(same, f"gather_rows disagrees with gather_rows_plain or gather_rows_simple on {label}")
+        f"{table.shape[0]}: {'exact' if same else 'DIFFERS'} against the plain version")
+    check(same, f"gather_rows disagrees with gather_rows_plain on {label}")
     return 0.0
 
 
@@ -1518,7 +1470,7 @@ def hash_path_phase(service):
     for label, (args, kw) in zip(names, seen_i):
         err = max(err, integrate_errors(f"hash {label}", *args[:3], kw["ert_threshold"],
                                         kw["sigma_activation"]))
-    b3_rows = [integrate_turns(f"hash-grid serving {label}", *args[:3], kw["ert_threshold"],
+    b3_rows = [integrate_times(f"hash-grid serving {label}", *args[:3], kw["ert_threshold"],
                                kw["sigma_activation"])
                for label, (args, kw) in zip(names[:2], seen_i[:2])]
     return err, b3_rows
@@ -1526,9 +1478,9 @@ def hash_path_phase(service):
 
 def hash_grads_phase(cfg, state, grid, data, dev):
     """The scatter-add on one step's own fine inputs, and the whole step,
-    kernels against plain, and integrate on the step's batches in turns with
-    the previous kernel. Returns the scatter-add's error, the fine batch's
-    gather and scatter inputs and the integrate times."""
+    kernels against plain, and integrate on the step's batches timed.
+    Returns the scatter-add's error, the fine batch's gather and scatter
+    inputs and the integrate times."""
     import torch
     from nerf_tpu_torch.ops import hash_gather, integrate as tint
     from nerf_tpu_torch.render.renderer import RenderOptions
@@ -1544,7 +1496,7 @@ def hash_grads_phase(cfg, state, grid, data, dev):
         lk, _, gk = loss_and_grads(state.params, ro, rd, tgt, opts, grid, gen)
     seen_g, seen_s = [a for a, _ in seen_g], [a for a, _ in seen_s]
     check(len(seen_i) == 2, f"{len(seen_i)} integrates in one step, expected 2")
-    b3_rows = [integrate_turns(f"train batch {lbl}", *args[:3], kw["ert_threshold"],
+    b3_rows = [integrate_times(f"train batch {lbl}", *args[:3], kw["ert_threshold"],
                                kw["sigma_activation"])
                for lbl, (args, kw) in zip(("coarse", "fine"),
                                           sorted(seen_i, key=lambda c: c[0][1].shape[1]))]
@@ -1630,11 +1582,9 @@ def hash_step_gate(label, lk, gk, step, small_leaves):
 
 def gather_times(label, table, idx):
     """B4 alone on (table [R, W], idx [N]), exact against its plain version
-    and the previous kernel on these rows, timed in turns with the previous
-    kernel (new, old, old, new) beside its bound, sector floor, plain
-    version and library call (torch.index_select). B4 must be faster than
-    both on rows of 4 bytes, and no slower than the previous kernel on the
-    others."""
+    on these rows, timed beside its bound, sector floor, plain version and
+    library call (torch.index_select), which B4 must beat on rows of 4
+    bytes."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
@@ -1644,11 +1594,9 @@ def gather_times(label, table, idx):
     lib, stream = hash_gather._lib(), torch.cuda.current_stream().cuda_stream
     row_b = table.shape[1] * table.element_size()
     gargs = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n, row_b, stream)
-    calls = {"new": lambda: lib.launch_gather_rows(*gargs),
-             "old": lambda: lib.launch_gather_rows_simple(*gargs)}
-    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_gather_rows failed")
-    turns = [time_ms(calls[k], reps=50) for k in ("new", "old", "old", "new")]
-    ms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    check(lib.launch_gather_rows(*gargs) == 0, "launch_gather_rows failed")
+    times = [time_ms(lambda: lib.launch_gather_rows(*gargs), reps=50) for _ in range(2)]
+    ms = sum(times) / 2
     plain_ms = time_ms(lambda: hash_gather.gather_rows_plain(table, idx), reps=20)
     library_ms = time_ms(lambda: torch.index_select(table, 0, idx), reps=20)
     distinct = int(torch.unique(idx).numel())
@@ -1659,24 +1607,19 @@ def gather_times(label, table, idx):
     floor = sector_bytes / PEAK_BYTES * 1e3
     log(f"gather_rows {label}, {n} rows of {row_b} B ({distinct} distinct of {table.shape[0]}): "
         f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of the bound's bytes, "
-        f"{bound / ms:.3f} of the bound), previous kernel {old_ms:.4f} ms (turns "
-        f"{', '.join(f'{t:.4f}' for t in turns)}), plain {plain_ms:.4f} ms, torch.index_select "
+        f"{bound / ms:.3f} of the bound; {', '.join(f'{t:.4f}' for t in times)}), plain "
+        f"{plain_ms:.4f} ms, torch.index_select "
         f"{library_ms:.4f} ms, bound {bound:.4f} ms, sector floor {floor:.4f} ms (HBM; a "
         f"table that fits the 50 MB L2 serves repeated rows for less)")
     if row_b == 4:
-        check(ms < old_ms and ms < library_ms,
-              f"B4 on {label} is not faster than the previous kernel and index_select")
-    else:
-        check(ms <= GATHER_NO_SLOWER * old_ms,
-              f"B4 on {label} is slower than the previous kernel")
+        check(ms < library_ms, f"B4 on {label} is not faster than index_select")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms, "previous_ms": old_ms, "sector_floor_ms": floor}
+            "library_ms": library_ms, "sector_floor_ms": floor}
 
 
-def scatter_times(label, sidx, cot, n_rows, previous=True):
-    """B4' alone (and, with ``previous``, in turns with the atomic kernel and
-    its three launches alone) beside its bound, byte floor, plain version and
-    library call (index_add_ in the cotangent's dtype)."""
+def scatter_times(label, sidx, cot, n_rows):
+    """B4' alone and its three launches alone beside its bound, byte floor,
+    plain version and library call (index_add_ in the cotangent's dtype)."""
     import torch
     from nerf_tpu_torch.ops import hash_gather
 
@@ -1687,19 +1630,12 @@ def scatter_times(label, sidx, cot, n_rows, previous=True):
     res = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
     sargs = (sidx.data_ptr(), cot.data_ptr(), acc.data_ptr(), res.data_ptr(), n_rows, n, width,
              int(cot.dtype == torch.bfloat16))
-    calls = {"new": lambda: lib.launch_scatter_add_rows(*sargs, stream),
-             "old": lambda: lib.launch_scatter_add_rows_atomic(*sargs, stream)}
-    check(calls["new"]() == 0 and calls["old"]() == 0, "launch_scatter_add_rows failed")
-    if previous:
-        turns = [time_ms(calls[k], reps=50) for k in ("new", "old", "old", "new")]
-        sms, old_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-        parts = [time_ms(lambda: lib.launch_scatter_add_rows_part(*sargs, i, stream), reps=50)
-                 for i in range(3)]
-        extra = (f"previous (atomic) kernel {old_ms:.4f} ms (turns "
-                 f"{', '.join(f'{t:.4f}' for t in turns)}); its launches alone: memset "
-                 f"{parts[0]:.4f}, accumulation {parts[1]:.4f}, rounding {parts[2]:.4f} ms; ")
-    else:
-        sms, extra = time_ms(calls["new"], reps=20), ""
+    check(lib.launch_scatter_add_rows(*sargs, stream) == 0, "launch_scatter_add_rows failed")
+    times = [time_ms(lambda: lib.launch_scatter_add_rows(*sargs, stream), reps=50)
+             for _ in range(2)]
+    sms = sum(times) / 2
+    parts = [time_ms(lambda: lib.launch_scatter_add_rows_part(*sargs, i, stream), reps=50)
+             for i in range(3)]
     splain_ms = time_ms(lambda: hash_gather.scatter_add_rows_plain(sidx, cot, n_rows), reps=20)
     lib_buf = torch.empty((n_rows, width), dtype=cot.dtype, device=dev)
     slib_ms = time_ms(lambda: lib_buf.zero_().index_add_(0, sidx, cot), reps=20)
@@ -1710,11 +1646,11 @@ def scatter_times(label, sidx, cot, n_rows, previous=True):
     floor = (snbytes + 2 * n_rows * width * 4) / PEAK_BYTES * 1e3
     runs = int(hash_gather.warp_runs(sidx)[2][:n].sum())
     log(f"scatter_add_rows {label}, {n} rows of {width} {cot.dtype} into {n_rows} ({runs} runs "
-        f"in warps of 32 rows): kernel {sms:.4f} ms, {extra}plain {splain_ms:.4f} ms, "
+        f"in warps of 32 rows): kernel {sms:.4f} ms ({', '.join(f'{t:.4f}' for t in times)}); "
+        f"its launches alone: memset {parts[0]:.4f}, accumulation {parts[1]:.4f}, rounding "
+        f"{parts[2]:.4f} ms; plain {splain_ms:.4f} ms, "
         f"index_add_ in {cot.dtype} {slib_ms:.4f} ms, bound {sbound:.4f} ms ({sbound / sms:.3f} "
         f"of it), this design's byte floor {floor:.4f} ms")
-    if previous:
-        check(sms < old_ms, "the scatter-add is not faster than the previous (atomic) kernel")
     return {"ms": sms, "plain_ms": splain_ms, "bound_ms": sbound, "bound_by": "bytes",
             "library_ms": slib_ms}
 
@@ -1768,17 +1704,15 @@ def b3_summary(rows):
     coarse and fine; a train step of either model one batch of 1024 rays,
     coarse and fine (timed on the hash-grid step's)."""
     for r in rows:
-        log(f"B3 {r['label']:<30} N={r['n']:>5} S={r['s']:>3}: {r['ms']:.4f} ms (previous "
-            f"{r['old_ms']:.4f}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{r['bound_ms'] / r['ms']:.3f} of it")
-    lost = {r["label"]: (r["ms"] - r["bound_ms"], r["old_ms"] - r["bound_ms"]) for r in rows}
+        log(f"B3 {r['label']:<30} N={r['n']:>5} S={r['s']:>3}: {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_ms'] / r['ms']:.3f} of it")
+    lost = {r["label"]: r["ms"] - r["bound_ms"] for r in rows}
     for what, counts in (("lego request", {"lego tile coarse": 5, "lego tile fine": 5}),
                          ("hash-grid request", {"hash-grid serving first tile coarse": 40,
                                                 "hash-grid serving first tile fine": 40}),
                          ("train step", {"train batch coarse": 1, "train batch fine": 1})):
-        new = sum(c * lost[k][0] for k, c in counts.items())
-        old = sum(c * lost[k][1] for k, c in counts.items())
-        log(f"B3 launches x (time - bound) per {what}: {new:.4f} ms (previous kernel {old:.4f})")
+        log(f"B3 launches x (time - bound) per {what}: "
+            f"{sum(c * lost[k] for k, c in counts.items()):.4f} ms")
 
 
 # The evaluation slice (phases 15-19): a Blender-layout scene of the lego
@@ -2186,59 +2120,46 @@ def _f32_counters():
             "fused_nerf_bwd_f32": fused_mlp_bwd.fused_nerf_bwd_f32, "integrate": tint.integrate}
 
 
-def f32_dw_turns(label, kp, pts, dirs, g):
+def f32_dw_times(label, kp, pts, dirs, g):
     """B2-f32 on one batch (no input gradients, as the train step calls it):
-    its weight-gradient launch (3xTF32, tensor cores) timed in turns with the
-    previous fmaf one (new, old, old, new; each CUDA events over 3 calls),
-    which it must beat; the whole backward and its four launches; the
+    its weight-gradient launch (3xTF32, tensor cores) timed twice (each CUDA
+    events over 3 calls); the whole backward and its four launches; the
     weight gradients against the 3xTF32 bound and their byte floor, the
-    fmaf launch against the CUDA cores' bound, the whole backward against
-    the float32 bound and the bound with dW in 3xTF32; each leaf's distance
-    from the plain version summed in float64, the largest of the kernel's,
-    the fmaf kernel's and the plain version's in float32. Returns the times."""
+    whole backward against the float32 bound and the bound with dW in
+    3xTF32; each leaf's distance from the plain version summed in float64,
+    the largest of the kernel's and the plain version's in float32. Returns
+    the times."""
     from nerf_tpu_torch.ops import fused_mlp_bwd as fb
     from nerf_tpu_torch.tools import f32_check
 
     n = pts.shape[0]
-    new = fb.launch_f32(kp, pts, dirs, g, input_grads=False)
-    old = fb.fused_nerf_bwd_f32_fmaf(kp, pts, dirs, g, input_grads=False)
+    full = fb.launch_f32(kp, pts, dirs, g, input_grads=False)
     lib = fb._lib_f32()[0]
 
-    def timed(full, phases):
+    def timed(phases):
         args = list(full["args"])
         args[-2] = phases
         return time_ms(lambda: lib.launch_fused_nerf_bwd_f32(*args), reps=3)
 
-    turns = {"new": [], "old": []}
-    for who in ("new", "old", "old", "new"):
-        turns[who].append(timed(new, 4) if who == "new" else
-                          timed(old, fb.F32_PHASE_DW_FMAF))
-    dw, dw_old = (sum(v) / len(v) for v in (turns["new"], turns["old"]))
-    t = {name: timed(new, ph) for name, ph in (("all", fb.F32_PHASES_ALL), ("forward + stash", 1),
-                                               ("chain", 2), ("weight gradients", 4),
-                                               ("reduce", 8))}
-    t["all, fmaf dW"] = timed(old, fb.F32_PHASES_FMAF)
+    dws = [timed(4) for _ in range(2)]
+    dw = sum(dws) / 2
+    t = {name: timed(ph) for name, ph in (("all", fb.F32_PHASES_ALL), ("forward + stash", 1),
+                                          ("chain", 2), ("weight gradients", 4), ("reduce", 8))}
     splits = fb.f32_splits_for(min(n + (-n) % fb.F32_TILE, fb.F32_CHUNK))
-    tc, floor, fmaf = (f32_check.dw_bound_ms(n), f32_check.dw_byte_floor_ms(n, splits),
-                       f32_check.dw_fmaf_bound_ms(n))
+    tc, floor = f32_check.dw_bound_ms(n), f32_check.dw_byte_floor_ms(n, splits)
     b32, bmix = f32_check.bwd_bound_ms(n), f32_check.bwd_bound_ms(n, tf32_dw=True)
     dist = f32_check.float64_distances(kp, pts, dirs, g, {
-        "B2-f32": lambda *a: fb.launch_f32(*a, input_grads=False)["kgrads"],
-        "fmaf dW": lambda *a: fb.fused_nerf_bwd_f32_fmaf(*a, input_grads=False)["kgrads"]})
-    log(f"B2-f32 dW on {label}, {n} pts, in turns: 3xTF32 {dw:.4f} ms "
-        f"({', '.join(f'{v:.4f}' for v in turns['new'])}) against the fmaf dW {dw_old:.4f} ms "
-        f"({', '.join(f'{v:.4f}' for v in turns['old'])}), {dw_old / dw:.2f}x; 3xTF32 bound "
-        f"{tc:.4f} ms at 495/3 TFLOP/s ({tc / dw:.3f}), byte floor {floor:.4f} ms "
-        f"({floor / dw:.3f}); the fmaf dW against 67 TFLOP/s {fmaf:.4f} ms ({fmaf / dw_old:.3f})")
-    log(f"B2-f32 on {label}: whole {t['all']:.4f} ms (with the fmaf dW {t['all, fmaf dW']:.4f}); "
-        + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k not in ("all", "all, fmaf dW"))
+        "B2-f32": lambda *a: fb.launch_f32(*a, input_grads=False)["kgrads"]})
+    log(f"B2-f32 dW on {label}, {n} pts: 3xTF32 {dw:.4f} ms "
+        f"({', '.join(f'{v:.4f}' for v in dws)}); 3xTF32 bound {tc:.4f} ms at 495/3 TFLOP/s "
+        f"({tc / dw:.3f}), byte floor {floor:.4f} ms ({floor / dw:.3f})")
+    log(f"B2-f32 on {label}: whole {t['all']:.4f} ms; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if k != "all")
         + f" ms; float32 bound {b32:.4f} ms ({b32 / t['all']:.3f}), bound with dW in 3xTF32 "
         f"{bmix:.4f} ms ({bmix / t['all']:.3f})")
     log(f"B2-f32 on {label}, largest leaf distance from the plain version in float64 "
         f"(max|k - p64| / max|p64|, knife-edge points masked): "
         + "; ".join(f"{k} {v[0]:.3g} ({v[1]})" for k, v in dist.items()))
-    check(dw < dw_old, f"B2-f32's 3xTF32 weight gradients are not faster than the fmaf ones "
-          f"on {label}")
     return t
 
 
@@ -2279,7 +2200,7 @@ def f32_random_phase(params, dev):
               f"B2-f32's input gradients on {m} points differ from a launch of {n}")
     log(f"B1-f32 and B2-f32 alone on {', '.join(map(str, RAGGED_SIZES))} points: exactly the "
         f"rows of the {n}-point launch")
-    f32_dw_turns("the random points", kp, pts, d, g)
+    f32_dw_times("the random points", kp, pts, d, g)
     return fwd_errs, bwd_abs
 
 
@@ -2343,7 +2264,7 @@ def f32_train_phase(root, work, data, grid, dev):
     kernels against the plain float32 path with the same fine samples and
     the knife-edge points masked (loss within 1e-5 relative, every leaf
     within B2-f32's bound); B2-f32 on that step's coarse and fine inputs
-    against its plain version, and timed on the fine batch (``f32_dw_turns``)
+    against its plain version, and timed on the fine batch (``f32_dw_times``)
     beside its bound, the plain version and a float32 torch.matmul chain's
     autograd. Returns (the kernel's entry, the path's launches)."""
     import torch
@@ -2405,7 +2326,7 @@ def f32_train_phase(root, work, data, grid, dev):
             f"{b['worst']:.3g} of its bound, {b['masked']} knife-edge points zeroed")
         check(b["worst"] <= 1.0, f"B2-f32 disagrees with its plain version on the {label} batch")
     kp, pts, dirs, g = seen[1]
-    times = f32_dw_turns("the step's fine batch", kp, pts, dirs, g)
+    times = f32_dw_times("the step's fine batch", kp, pts, dirs, g)
     plain_ms = time_ms(lambda: fb.fused_nerf_bwd_plain(kp, pts, dirs, g, input_grads=False),
                        reps=2)
     chain_ms = time_ms(lambda: f32_check.matmul_chain_f32_bwd(kp, pts, dirs, g), reps=2)
@@ -3394,8 +3315,8 @@ def encoder_phase(dev):
                 table, idx = gathered_k[0]
                 sidx, cot, n_rows = seen_k[0]
                 timed[etype] = (gather_times(f"{etype} ({ENC_TIMED[etype]})", table.detach(), idx),
-                                scatter_times(f"{etype} ({ENC_TIMED[etype]})", sidx, cot, n_rows,
-                                              previous=False), idx.shape[0])
+                                scatter_times(f"{etype} ({ENC_TIMED[etype]})", sidx, cot, n_rows),
+                                idx.shape[0])
             del built, params, args, leaves, wrt, out, grads, out_k, out_p, grads_k, grads_p
             seen_k.clear()
             gathered_k.clear()
@@ -3704,7 +3625,7 @@ def corner_phase(root, work, dev, cellpack):
                       zip(("coarse", "fine"), sorted(seen_s, key=lambda c: c[0].shape[0])))
     hash_step_gate("corner", lk, gk, step, small_leaves=True)
     gather = gather_times("corner NeRF fine batch", *fine_g)
-    scatter = scatter_times("corner NeRF fine batch", *fine_s, previous=False)
+    scatter = scatter_times("corner NeRF fine batch", *fine_s)
 
     tx = make_optimizer(cfg)
     n_rays = int(cfg.task_arg.N_rays)
@@ -3724,7 +3645,7 @@ def corner_phase(root, work, dev, cellpack):
         f"{SIZE}x{SIZE} request; the cellpack model (phases 12, 14): {cellpack['step_ms']:.3f} "
         f"ms a step, {cellpack['request_ms']:.2f} ms a request; B4 {gather['ms']:.4f} ms "
         f"({gather['bound_ms'] / gather['ms']:.3f} of its {gather['bound_ms']:.4f} ms bound, "
-        f"index_select {gather['library_ms']:.4f}, previous kernel {gather['previous_ms']:.4f}), "
+        f"index_select {gather['library_ms']:.4f}), "
         f"B4' {scatter['ms']:.4f} ms "
         f"({scatter['bound_ms'] / scatter['ms']:.3f} of its {scatter['bound_ms']:.4f} ms bound, "
         f"index_add_ {scatter['library_ms']:.4f}) on {CORNER_ROWS} rows of 4 B")
@@ -4213,7 +4134,7 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
                                                     fine_g, fine_s)
     log(f"hash-grid model on {smi}: {step_ms:.3f} ms per train step (1024 rays), "
         f"{request_ms:.2f} ms per {SIZE}x{SIZE} request; B4 on the fine batch "
-        f"{gather_t['ms']:.4f} ms (previous kernel {gather_t['previous_ms']:.4f}, bound "
+        f"{gather_t['ms']:.4f} ms (bound "
         f"{gather_t['bound_ms']:.4f}, sector floor {gather_t['sector_floor_ms']:.4f}); "
         f"launches on its serving path "
         f"{hserve_launches}, on its train path {hash_launches}")
@@ -4324,8 +4245,7 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
     rig = light_stage_phase(work)
     g4, s4 = timed["cuda_hashgrid_4d"][:2]
     log(f"breadth slice on {smi}: B4 on the 4-D corner rows {g4['ms']:.4f} ms (bound "
-        f"{g4['bound_ms']:.4f}, index_select {g4['library_ms']:.4f}, previous kernel "
-        f"{g4['previous_ms']:.4f}), B4' {s4['ms']:.4f} ms "
+        f"{g4['bound_ms']:.4f}, index_select {g4['library_ms']:.4f}), B4' {s4['ms']:.4f} ms "
         f"(bound {s4['bound_ms']:.4f}, index_add_ {s4['library_ms']:.4f}); under the encoder "
         f"phase B4 {enc['gather']} and B4' {enc['scatter']} launches; img_fit "
         f"{img_fit['step_ms']:.3f} ms a step, PSNR {img_fit['psnr']:.4f} dB after "
@@ -4355,7 +4275,7 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
         f"{SIZE}x{SIZE} request; lego_hashgrid (corner) {corner['step_ms']:.3f} ms a step, "
         f"{corner['request_ms']:.2f} ms a request (cellpack {step_ms:.3f}, {request_ms:.2f}); "
         f"B4 {cg['ms']:.4f} ms (bound {cg['bound_ms']:.4f}, index_select "
-        f"{cg['library_ms']:.4f}, previous kernel {cg['previous_ms']:.4f}), B4' {cs['ms']:.4f} ms "
+        f"{cg['library_ms']:.4f}), B4' {cs['ms']:.4f} ms "
         f"(bound {cs['bound_ms']:.4f}, index_add_ "
         f"{cs['library_ms']:.4f}) on its {CORNER_ROWS} fine rows; 7 scenes "
         f"{sum(scenes.values()):.1f} s; native loader "
@@ -4375,9 +4295,8 @@ def _from_phase_11(root, dev, smi, work, service, first_png, kernels, b3_rows, h
     kernels += encoder_kernels_phase(dev, smi)
     log("phase 47: done")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_ms",
-             "sector_floor_ms", "encoder_launches",
-             "encoder_shapes", "corner_nerf"]
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "sector_floor_ms",
+             "encoder_launches", "encoder_shapes", "corner_nerf"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{k: kern[k] for k in order if k in kern}
                                   for kern in kernels]}), flush=True)

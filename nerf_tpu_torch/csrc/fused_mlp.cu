@@ -66,10 +66,7 @@
 // The kernel's code is in fused_mlp_wgmma.cuh (a template: the backward,
 // fused_mlp_bwd.cu, recomputes its forward with the same code, which also
 // writes the activation stash and the ReLU masks), the PTX helpers in
-// hopper.cuh. The previous forward (nvcuda::wmma, 64-point blocks, weights
-// read from L2 as fragments) stays in fused_mlp.cuh as fused_nerf_kernel;
-// its serving instantiation is exported here as launch_fused_nerf_wmma,
-// which chip_smoke.py and the GPU tests hold the new kernel against.
+// hopper.cuh; the layout of the packed buffers in fused_mlp.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no PyTorch headers; bound with ctypes).
@@ -146,21 +143,6 @@ extern "C" int launch_fused_nerf(const void* pts, const void* dirs, const void* 
       <<<tiles < sms ? tiles : sms, NTHR, WG_SMEM, (cudaStream_t)stream>>>(
           (const float*)pts, (const float*)dirs, (const bf16*)wpack, (const bf16*)wbuf,
           (const float*)bbuf, (float*)out, P, nullptr, nullptr);
-  return (int)cudaGetLastError();
-}
-
-// The previous forward (fused_mlp.cuh, nvcuda::wmma, 64-point blocks), kept as
-// the yardstick of the kernel above. Same arguments but wpack.
-extern "C" int launch_fused_nerf_wmma(const void* pts, const void* dirs, const void* wbuf,
-                                      const void* bbuf, void* out, int P, void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_nerf_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  if (P <= 0) return 0;
-  const int blocks = (P + TP - 1) / TP;
-  fused_nerf_kernel<false><<<blocks, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)pts, (const float*)dirs, (const bf16*)wbuf, (const float*)bbuf,
-      (float*)out, P, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -67,10 +67,6 @@
 // weights as their bf16 values. The plain version rounds at the same places.
 // P must be a multiple of 128 (the wrapper pads with zero gradients).
 //
-// The wmma backward (wmma products, a row stash) is kept in
-// fused_mlp_bwd_wmma.cuh and exported as launch_fused_nerf_bwd_wmma, the
-// yardstick of this one; no path of the port calls it.
-//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no PyTorch headers; bound with ctypes).
 
@@ -98,8 +94,8 @@ __device__ __forceinline__ int head_entry(int e) {
 }
 
 // The sum of the partials over the ranges, in a fixed order: the heads'
-// entries over head_splits rows of hpartial [head_splits, head_ld] when it
-// is given (else of partial), the others over splits rows of partial.
+// entries over head_splits rows of hpartial [head_splits, head_ld], the
+// others over splits rows of partial.
 __global__ void reduce_kernel(const float* __restrict__ partial, int splits,
                               const float* __restrict__ hpartial, int head_splits, int head_ld,
                               float* __restrict__ out) {
@@ -107,20 +103,13 @@ __global__ void reduce_kernel(const float* __restrict__ partial, int splits,
   if (e >= TOTAL) return;
   const int h = head_entry(e);
   float sum = 0.0f;
-  if (h >= 0 && hpartial != nullptr) {
+  if (h >= 0) {
     for (int s = 0; s < head_splits; ++s) sum += hpartial[(size_t)s * head_ld + h];
   } else {
-    const int n = h >= 0 ? head_splits : splits;
-    for (int s = 0; s < n; ++s) sum += partial[(size_t)s * PST + e];
+    for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * PST + e];
   }
   out[e] = sum;
 }
-
-}  // namespace
-
-#include "fused_mlp_bwd_wmma.cuh"
-
-namespace {
 
 // ---- 2. the dX chain ----
 
@@ -176,8 +165,8 @@ __device__ __forceinline__ void store_g(unsigned char* gblk, int col, const unsi
 
 
 // This thread's 4 mask words of a layer (the layout of trunk_epilogue's
-// bits) from the bf16 stash block's columns scol..: the masks as the wmma
-// chain read them, for tools/bwd_variants.py's stash_masks variant.
+// bits) from the bf16 stash block's columns scol.., the activations' signs,
+// for tools/bwd_variants.py's stash_masks variant.
 __device__ __forceinline__ void mask_from_stash(const unsigned char* sblk, int scol,
                                                 uint32_t (&m)[4]) {
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
@@ -340,7 +329,7 @@ bwd_chain_wgmma_kernel(const float* __restrict__ g, const bf16* __restrict__ wpa
 // The encoding columns' gradients of the 64 points of block blockIdx.x, in
 // f32: enc_x = G_0 W0^T + G_5 W5x^T (m64n64), enc_d = G_view Wvd^T (m64n32),
 // on wgmma from G slabs and weights bulk-copied to shared memory; then
-// dpts, ddirs through the phases in exact f32, as the wmma chain did.
+// dpts, ddirs through the phases in exact f32.
 constexpr int IN_G0 = 0, IN_G5 = IN_G0 + G_TILE, IN_GV = IN_G5 + G_TILE;
 constexpr int IN_W0 = IN_GV + VW / 8 * SLAB, IN_W5 = IN_W0 + W * EX * 2;
 constexpr int IN_WV = IN_W5 + W * EX * 2, IN_DENC = IN_WV + VW * ED * 2;
@@ -882,41 +871,6 @@ extern "C" int launch_fused_nerf_bwd(const void* pts, const void* dirs, const vo
   if (phases & PH_REDUCE)
     reduce_kernel<<<(TOTAL + 255) / 256, 256, 0, st>>>(
         (const float*)partial, splits, (const float*)hpartial, head_splits, HEAD_LD, (float*)out);
-  return (int)cudaGetLastError();
-}
-
-// The wmma backward (fused_mlp_bwd_wmma.cuh): stash [P, SLD] and gbuf [P,
-// GLD] bf16 row-major, partial [splits, PST]; P a multiple of 64; the other
-// arguments as above.
-extern "C" int launch_fused_nerf_bwd_wmma(const void* pts, const void* dirs, const void* g,
-                                          const void* wbuf, const void* bbuf, void* stash,
-                                          void* gbuf, void* partial, void* out, void* dpts,
-                                          void* ddirs, int P, int splits, int input_grads,
-                                          void* stream) {
-  cudaError_t e = cudaFuncSetAttribute(
-      fused_nerf_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(wmma_bwd::bwd_chain_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, wmma_bwd::CHAIN_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  if (P % TP != 0 || splits < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (P > 0) {
-    const int blocks = P / TP;
-    fused_nerf_kernel<true><<<blocks, NTHREADS, SMEM_BYTES, st>>>(
-        (const float*)pts, (const float*)dirs, (const bf16*)wbuf, (const float*)bbuf, nullptr,
-        P, (bf16*)stash);
-    wmma_bwd::bwd_chain_kernel<<<blocks, NTHREADS, wmma_bwd::CHAIN_SMEM, st>>>(
-        (const float*)pts, (const float*)dirs, (const float*)g, (const bf16*)wbuf,
-        (const bf16*)stash, (bf16*)gbuf, (float*)dpts, (float*)ddirs, input_grads);
-  }
-  const int chunk = ((P + splits - 1) / splits + 15) / 16 * 16;  // points per split
-  wmma_bwd::wgrad_kernel<<<dim3(wmma_bwd::WGRAD_TILES, splits), NTHREADS, 0, st>>>(
-      (const bf16*)stash, (const bf16*)gbuf, (float*)partial, P, chunk);
-  wmma_bwd::head_wgrad_kernel<<<splits, wmma_bwd::HQ * W, 0, st>>>(
-      (const bf16*)stash, (const float*)g, (float*)partial, P, chunk);
-  reduce_kernel<<<(TOTAL + 255) / 256, 256, 0, st>>>((const float*)partial, splits, nullptr,
-                                                      splits, 0, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -45,8 +45,7 @@
 //    stages the product's sum is added into a register sum and restarted
 //    (the tensor cores' float32 sums drift over long ranges). The heads
 //    (256 x 1, 128 x 3) and their biases are fmaf on the CUDA cores in two
-//    small units of the same launch. dw_f32_kernel, the previous fmaf
-//    design, stays for comparison only (phase bit 16);
+//    small units of the same launch;
 // 4. reduce: each gradient entry sums its splits' partials in split order.
 // Every sum runs in a fixed order, so a call gives the same bits each time.
 // The stash and gbuf cost 19.8 KB a point; the launcher runs the launches on
@@ -203,100 +202,8 @@ chain_f32_kernel(const float* __restrict__ g, const float* __restrict__ wbuf,
   }
 }
 
-// A weight gradient dW[K, N] = X^T G over the points, X from stash columns
-// xcol.. (xcol < 0: a bias, X = 1, K = 1), G from gbuf columns gcol..; it goes
-// to entry out + k N + n of a split's partial row (wbuf order, then bbuf's).
-struct Job {
-  int xcol, k, gcol, n, out;
-};
-constexpr int NJOBS = 26;
-constexpr int TK = 128, TN = 128, DW_PTS = 32;  // a block's output tile; points a step
-struct Jobs {
-  Job job[NJOBS];
-  int first[NJOBS + 1];  // first block (x) of each job's tiles
-};
+// a split's row of partials: the weight gradients in wbuf order, then the biases'
 constexpr int PST = WBUF_SIZE + BBUF_SIZE;
-constexpr int DW_LD = TK + 4;  // row stride of the [points][columns] tiles
-constexpr int DW_SMEM = 2 * DW_PTS * DW_LD * 4;
-
-__global__ void __launch_bounds__(NT, 2)
-dw_f32_kernel(const float* __restrict__ stash, const float* __restrict__ gbuf,
-              float* __restrict__ partial, int nslabs, Jobs jobs) {
-  extern __shared__ float4 smem4[];
-  float* sXs = reinterpret_cast<float*>(smem4);
-  float* sGs = sXs + DW_PTS * DW_LD;
-  int j = 0;
-  while (blockIdx.x >= jobs.first[j + 1]) ++j;
-  const Job jb = jobs.job[j];
-  const int ntn = (jb.n + TN - 1) / TN, t = blockIdx.x - jobs.first[j];
-  const int k0 = (t / ntn) * TK, n0 = (t % ntn) * TN;
-  const int kn = min(TK, jb.k - k0), nn = min(TN, jb.n - n0);
-  const int split = blockIdx.y, splits = gridDim.y;
-  const int s0 = (int)((long long)nslabs * split / splits);
-  const int s1 = (int)((long long)nslabs * (split + 1) / splits);
-  const int tid = threadIdx.x, tk = tid >> 4, tn = tid & 15;
-  // a thread's rows 4 tk + (0..3), 64 + 4 tk + (0..3); columns likewise by tn
-  const bool active = 4 * tk < kn;
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-  for (int s = s0; s < s1; ++s) {
-    for (int h = 0; h < TP; h += DW_PTS) {
-      // X and G of 32 points, transposed to [point][column]
-      for (int idx = tid; idx < (TK + TN) * (DW_PTS / 4); idx += NT) {
-        const bool isx = idx < TK * (DW_PTS / 4);
-        const int c = (isx ? idx : idx - TK * (DW_PTS / 4)) / (DW_PTS / 4), q = idx % (DW_PTS / 4);
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (isx ? c < kn : c < nn) {
-          if (isx && jb.xcol < 0) {
-            v = make_float4(1.f, 1.f, 1.f, 1.f);
-          } else {
-            const float* src = isx ? stash + ((size_t)s * SLD + jb.xcol + k0 + c) * TP
-                                   : gbuf + ((size_t)s * GLD + jb.gcol + n0 + c) * TP;
-            v = __ldg(reinterpret_cast<const float4*>(src + h) + q);
-          }
-        }
-        float* dst = (isx ? sXs : sGs) + 4 * q * DW_LD + c;
-        dst[0] = v.x;
-        dst[DW_LD] = v.y;
-        dst[2 * DW_LD] = v.z;
-        dst[3 * DW_LD] = v.w;
-      }
-      __syncthreads();
-      if (active) {
-#pragma unroll 4
-        for (int p = 0; p < DW_PTS; ++p) {
-          const float* xr = sXs + p * DW_LD;
-          const float* gr = sGs + p * DW_LD;
-          const float4 x0 = *reinterpret_cast<const float4*>(xr + 4 * tk);
-          const float4 x1 = *reinterpret_cast<const float4*>(xr + 64 + 4 * tk);
-          const float4 g0 = *reinterpret_cast<const float4*>(gr + 4 * tn);
-          const float4 g1 = *reinterpret_cast<const float4*>(gr + 64 + 4 * tn);
-          const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-          const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-#pragma unroll
-          for (int a = 0; a < 8; ++a)
-#pragma unroll
-            for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(x[a], gg[b], acc[a][b]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  float* dst = partial + (size_t)split * PST + jb.out;
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int k = (a & 3) + 4 * tk + 64 * (a >> 2);
-    if (k >= kn) continue;
-#pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int n = (b & 3) + 4 * tn + 64 * (b >> 2);
-      if (n < nn) dst[(size_t)(k0 + k) * jb.n + n0 + n] = acc[a][b];
-    }
-  }
-}
 
 // ---- 3. weight gradients on the tensor cores (3xTF32) ----
 
@@ -686,44 +593,6 @@ __global__ void reduce_f32_kernel(const float* __restrict__ partial, float* __re
   flat[i] = accumulate ? flat[i] + s : s;
 }
 
-Jobs make_jobs() {
-  const Job list[NJOBS] = {
-      {S_X, EX, g_col(0), W, OFF_L0},
-      {s_h(1), W, g_col(1), W, off_layer(1)},
-      {s_h(2), W, g_col(2), W, off_layer(2)},
-      {s_h(3), W, g_col(3), W, off_layer(3)},
-      {s_h(4), W, g_col(4), W, off_layer(4)},
-      {S_X, EX, g_col(5), W, OFF_L5},
-      {s_h(5), W, g_col(5), W, OFF_L5 + EX * W},
-      {s_h(6), W, g_col(6), W, off_layer(6)},
-      {s_h(7), W, g_col(7), W, off_layer(7)},
-      {s_h(8), W, G_F, W, OFF_LF},
-      {S_FEAT, W, G_V, VW, OFF_LV},
-      {S_D, ED, G_V, VW, OFF_LV + W * VW},
-      {s_h(8), W, G_IN + 3, 1, OFF_WA},
-      {S_V, VW, G_IN, 3, OFF_WR},
-      {-1, 1, g_col(0), W, WBUF_SIZE},
-      {-1, 1, g_col(1), W, WBUF_SIZE + W},
-      {-1, 1, g_col(2), W, WBUF_SIZE + 2 * W},
-      {-1, 1, g_col(3), W, WBUF_SIZE + 3 * W},
-      {-1, 1, g_col(4), W, WBUF_SIZE + 4 * W},
-      {-1, 1, g_col(5), W, WBUF_SIZE + 5 * W},
-      {-1, 1, g_col(6), W, WBUF_SIZE + 6 * W},
-      {-1, 1, g_col(7), W, WBUF_SIZE + 7 * W},
-      {-1, 1, G_F, W, WBUF_SIZE + OFF_BF},
-      {-1, 1, G_V, VW, WBUF_SIZE + OFF_BV},
-      {-1, 1, G_IN + 3, 1, WBUF_SIZE + OFF_BA},
-      {-1, 1, G_IN, 3, WBUF_SIZE + OFF_BR},
-  };
-  Jobs jobs;
-  jobs.first[0] = 0;
-  for (int j = 0; j < NJOBS; ++j) {
-    jobs.job[j] = list[j];
-    jobs.first[j + 1] = jobs.first[j] + ((list[j].k + TK - 1) / TK) * ((list[j].n + TN - 1) / TN);
-  }
-  return jobs;
-}
-
 }  // namespace f32mlp
 
 using namespace f32mlp;
@@ -805,8 +674,7 @@ extern "C" void fused_nerf_bwd_f32_sizes(int* sld, int* gld, int* pst, int* wt) 
 // recomputed forward; dpts, ddirs [P, 3] when input_grads; units: the weight
 // gradients' work units, n_units rows of TC_UNIT_INTS ints (host memory).
 // phases selects the launches (1 forward, 2 chain, 4 weight gradients on
-// the tensor cores, 8 reduce; 15 all; 16 the previous fmaf weight
-// gradients, for comparison). Returns the CUDA error code.
+// the tensor cores, 8 reduce; 15 all). Returns the CUDA error code.
 extern "C" int launch_fused_nerf_bwd_f32(const void* pts, const void* dirs, const void* g,
                                          const void* wbuf, const void* bbuf, const void* wbuf_t,
                                          void* stash, void* gbuf, void* partial, void* flat,
@@ -823,7 +691,6 @@ extern "C" int launch_fused_nerf_bwd_f32(const void* pts, const void* dirs, cons
                                 TC_SMEM)) != cudaSuccess)
     return (int)e;
   if (P <= 0 || P % TP || chunk <= 0 || chunk % TP || splits <= 0) return (int)cudaErrorInvalidValue;
-  static const Jobs jobs = make_jobs();
   DwUnits table;
   if (!read_units(static_cast<const int*>(units), n_units, &table)) return (int)cudaErrorInvalidValue;
   CUtensorMap tm_x, tm_g;
@@ -848,9 +715,6 @@ extern "C" int launch_fused_nerf_bwd_f32(const void* pts, const void* dirs, cons
     if (phases & 4)
       dw_tf32_wgmma_kernel<<<n_units * splits, TC_THREADS, TC_SMEM, s>>>(
           tm_x, tm_g, (float*)partial, tiles, splits, table);
-    if (phases & 16)
-      dw_f32_kernel<<<dim3(jobs.first[NJOBS], splits), NT, DW_SMEM, s>>>(
-          (const float*)stash, (const float*)gbuf, (float*)partial, tiles, jobs);
     if (phases & 8)
       reduce_f32_kernel<<<(PST + 255) / 256, 256, 0, s>>>((const float*)partial, (float*)flat,
                                                           splits, c0 > 0);

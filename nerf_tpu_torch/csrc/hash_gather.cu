@@ -15,29 +15,27 @@
 // table (33.5 MB) fits the 50 MB L2, so repeated rows mostly hit there.
 //
 // The gather. The TPU kernel pipelines one DMA per row eight deep, because a
-// TPU core has no random per-lane load. Here the limit is bytes in flight:
-// by Little's law 3.35 TB/s over 132 SMs at ~0.7 us of DRAM latency needs
-// ~18 KB in flight per SM, and one 4-byte row a thread (the previous
-// kernel, launch_gather_rows_simple, whose grid-stride loop also spends a
-// 64-bit division a row) keeps ~8 KB there, so on the corner layout's
-// 4-byte rows it read under half of its bound. So a thread moves several
-// rows (ROWS of 2-8 bytes; WIDE_VECS 16-byte vectors of wider rows), in
-// three steps: all its indices (16-byte vectors where the rows are narrow
-// and idx is aligned to them), then all its table loads, then all its
-// stores as vectors (up to 16 bytes). A block takes one tile of THREADS x
-// (vectors a thread) output vectors, item k of thread t at vector
-// k THREADS + t, so neighbouring threads read neighbouring indices and
-// write neighbouring addresses; no grid-stride loop and no 64-bit division
-// on the paths' rows (2-32 bytes). Cache policy per access: indices and
-// output are touched once and stream past the caches (ld/st.global.cs);
-// table rows are read with an L2 evict_last policy, so the table (33.5 MB,
-// in the 50 MB L2) stays there across the ~200 MB of indices and output
-// that stream through L2 a launch, and from one launch to the next. The
-// hints are per instruction: no stream or device attribute is set.
-// What bounds it then: on rows of 4 bytes every row is a table sector
-// request (32 bytes) unless a neighbouring lane's row shares its sector,
-// and those requests, not DRAM, are the limit (PERF.md, measured with
-// nerf_tpu_torch/tools/gather_variants.py, which times the switches below).
+// TPU core has no random per-lane load. Here the limit is bytes in flight: by
+// Little's law 3.35 TB/s over 132 SMs at ~0.7 us of DRAM latency needs ~18 KB
+// in flight per SM, and one 4-byte row a thread keeps ~8 KB there (such a
+// kernel read under half of its bound on the corner layout's 4-byte rows:
+// PERF.md). So a thread moves several rows (ROWS of 2-8 bytes; WIDE_VECS
+// 16-byte vectors of wider rows), in three steps: all its indices (16-byte
+// vectors where the rows are narrow and idx is aligned to them), then all its
+// table loads, then all its stores as vectors (up to 16 bytes). A block takes
+// one tile of THREADS x (vectors a thread) output vectors, item k of thread t
+// at vector k THREADS + t, so neighbouring threads read neighbouring indices
+// and write neighbouring addresses; no grid-stride loop and no 64-bit division
+// on the paths' rows (2-32 bytes). Cache policy per access: indices and output
+// are touched once and stream past the caches (ld/st.global.cs); table rows
+// are read with an L2 evict_last policy, so the table (33.5 MB, in the 50 MB
+// L2) stays there across the ~200 MB of indices and output that stream through
+// L2 a launch, and from one launch to the next. The hints are per instruction:
+// no stream or device attribute is set. What bounds it then: on rows of 4
+// bytes every row is a table sector request (32 bytes) unless a neighbouring
+// lane's row shares its sector, and those requests, not DRAM, are the limit
+// (PERF.md, measured with nerf_tpu_torch/tools/gather_variants.py, which times
+// the switches below).
 //
 // The scatter-add accumulates in a float32 buffer (no bf16 sums, so
 // duplicates as heavy as the coarse levels' 4,096 cells lose nothing to
@@ -55,8 +53,6 @@
 // rounding pass reads 32 bytes and writes 16 a thread.
 // The reductions' order changes from run to run, so the float32 sums may
 // differ in their last bits between two runs on the same inputs.
-// launch_scatter_add_rows_atomic keeps the previous design (one scalar
-// atomicAdd per element, a 2-byte rounding pass) for comparison.
 //
 // An index outside [0, R) traps (the launch then reports an error at the
 // next synchronisation) rather than reading or writing outside the table.
@@ -104,22 +100,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-
-// The previous gather (launch_gather_rows_simple): one vector a thread, the
-// widest aligned vector that divides a row, in a grid-stride loop.
-template <typename Vec>
-__global__ void __launch_bounds__(THREADS)
-gather_kernel(const Vec* __restrict__ table, const int* __restrict__ idx,
-              Vec* __restrict__ out, long long n_rows, long long n_vecs, int vecs_per_row) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < n_vecs; t += stride) {
-    const long long i = t / vecs_per_row;
-    const int c = (int)(t - i * vecs_per_row);
-    const int r = __ldg(idx + i);
-    if (r < 0 || (long long)r >= n_rows) __trap();
-    out[t] = __ldg(table + (long long)r * vecs_per_row + c);
-  }
-}
 
 // Switched by nerf_tpu_torch/tools/gather_variants.py, which also measured
 // them (PERF.md): 4 rows and 2 vectors a thread were the fastest of 1-8.
@@ -314,33 +294,6 @@ gather_wide_kernel(const V* __restrict__ table, const int* __restrict__ idx, V* 
       store_once(out + b0 + k * THREADS + threadIdx.x, got[k]);
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// The previous design: one thread per cotangent element,
-// acc[idx[i], j] += cot[i, j] in float32.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-scatter_add_kernel(const int* __restrict__ idx, const T* __restrict__ cot,
-                   float* __restrict__ acc, long long n_rows, long long n_elems, int width) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < n_elems; t += stride) {
-    const long long i = t / width;
-    const int j = (int)(t - i * width);
-    const int r = __ldg(idx + i);
-    if (r < 0 || (long long)r >= n_rows) __trap();
-    atomicAdd(acc + (long long)r * width + j, to_float(cot[t]));
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-round_to_bf16_kernel(const float* __restrict__ acc, __nv_bfloat16* __restrict__ out,
-                     long long n) {
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long t = (long long)blockIdx.x * THREADS + threadIdx.x; t < n; t += stride)
-    out[t] = __float2bfloat16_rn(acc[t]);
-}
-
 constexpr unsigned FULL = 0xffffffffu;
 // Switched by nerf_tpu_torch/tools/scatter_variants.py: sum runs of equal
 // indices in a warp before any atomics; vector reductions, not scalar
@@ -491,15 +444,6 @@ int blocks_for(long long work) {
   // enough blocks to fill the card many times over; the loops stride the rest
   long long b = (work + THREADS - 1) / THREADS;
   return (int)(b < 132LL * 64 ? (b > 0 ? b : 1) : 132LL * 64);
-}
-
-template <typename Vec>
-void launch_gather_simple(const void* table, const int* idx, void* out, long long n_rows, int n,
-                          int row_bytes, cudaStream_t stream) {
-  const int vpr = row_bytes / (int)sizeof(Vec);
-  const long long n_vecs = (long long)n * vpr;
-  gather_kernel<Vec><<<blocks_for(n_vecs), THREADS, 0, stream>>>(
-      static_cast<const Vec*>(table), idx, static_cast<Vec*>(out), n_rows, n_vecs, vpr);
 }
 
 constexpr long long MAX_BLOCKS = 0x7fffffffLL;
@@ -802,23 +746,6 @@ extern "C" int launch_gather_rows(const void* table, const int* idx, void* out,
   return err ? err : (int)cudaGetLastError();
 }
 
-// The previous gather, for comparison: the same arguments and result.
-extern "C" int launch_gather_rows_simple(const void* table, const int* idx, void* out,
-                                         long long n_rows, int n, int row_bytes, void* stream) {
-  if (n < 0 || row_bytes <= 0 || row_bytes % 2) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (row_bytes % 16 == 0)
-    launch_gather_simple<uint4>(table, idx, out, n_rows, n, row_bytes, s);
-  else if (row_bytes % 8 == 0)
-    launch_gather_simple<uint2>(table, idx, out, n_rows, n, row_bytes, s);
-  else if (row_bytes % 4 == 0)
-    launch_gather_simple<uint32_t>(table, idx, out, n_rows, n, row_bytes, s);
-  else
-    launch_gather_simple<uint16_t>(table, idx, out, n_rows, n, row_bytes, s);
-  return (int)cudaGetLastError();
-}
-
 // grad [n_rows, width] = sum over i of cot[i] at row idx[i]. acc: float32
 // scratch [n_rows, width] (16-byte aligned), zeroed here; out: the result in
 // the table's dtype (bf16 = 1; 16-byte aligned) or, for float32 (bf16 = 0),
@@ -842,32 +769,6 @@ extern "C" int launch_scatter_add_rows_part(const int* idx, const void* cot, flo
   if (n < 0 || width <= 0 || part < 0 || part > 2) return (int)cudaErrorInvalidValue;
   return scatter_part(part, idx, cot, acc, out, n_rows, n, width, bf16,
                       static_cast<cudaStream_t>(stream));
-}
-
-// The previous scatter-add, for comparison: the same arguments and result.
-extern "C" int launch_scatter_add_rows_atomic(const int* idx, const void* cot, float* acc,
-                                              void* out, long long n_rows, int n, int width,
-                                              int bf16, void* stream) {
-  if (n < 0 || width <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_acc = n_rows * width;
-  cudaError_t err = cudaMemsetAsync(acc, 0, (size_t)n_acc * sizeof(float), s);
-  if (err != cudaSuccess) return (int)err;
-  const long long n_elems = (long long)n * width;
-  if (n_elems > 0) {
-    if (bf16)
-      scatter_add_kernel<__nv_bfloat16><<<blocks_for(n_elems), THREADS, 0, s>>>(
-          idx, static_cast<const __nv_bfloat16*>(cot), acc, n_rows, n_elems, width);
-    else
-      scatter_add_kernel<float><<<blocks_for(n_elems), THREADS, 0, s>>>(
-          idx, static_cast<const float*>(cot), acc, n_rows, n_elems, width);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (bf16)
-    round_to_bf16_kernel<<<blocks_for(n_acc), THREADS, 0, s>>>(
-        acc, static_cast<__nv_bfloat16*>(out), n_acc);
-  return (int)cudaGetLastError();
 }
 
 // The hash encoder's levels, passed to each of its three launches:

@@ -31,8 +31,6 @@
 // its samples. Either way a weight is zero exactly where T < ert.
 // tools/integrate_variants.py measured the alternatives (every ray in
 // chunks of 32, 64 or 128, read-once loads, block sizes).
-// launch_integrate_warp keeps the previous design (32 samples a round, a
-// scan and a round trip each) for comparison.
 //
 // Counting ERT's cut (a non-null ert_cut, while the program's spans are on):
 // each lane counts its samples whose weight ERT zeroes (T < ert, or the whole
@@ -60,7 +58,6 @@ constexpr bool UP_FRONT = true;
 constexpr int MAX_K = 8;  // samples a lane holds when loading a ray whole
 constexpr int CHUNK_K = 2;
 constexpr bool STREAM_LOADS = false;
-constexpr int WARP_KERNEL_WARPS = 8;  // the previous design's block
 
 // The density of raw sigma: relu (act 0), softplus (1, in a form that does
 // not overflow) or exp (2, Instant-NGP's log-space density). act is the
@@ -69,82 +66,6 @@ __device__ __forceinline__ float density(float sg, int act) {
   if (act == 1) return fmaxf(sg, 0.0f) + logf(1.0f + expf(-fabsf(sg)));
   if (act == 2) return expf(sg);
   return fmaxf(sg, 0.0f);
-}
-
-// The previous design: one warp per ray, 32 consecutive samples a round.
-__global__ void __launch_bounds__(WARP_KERNEL_WARPS * 32)
-integrate_warp_kernel(const float4* __restrict__ raw, const float* __restrict__ z,
-                 const float* __restrict__ rays_d, float* __restrict__ rgb_map,
-                 float* __restrict__ depth, float* __restrict__ acc,
-                 float* __restrict__ weights, int N, int S, float ert, int act) {
-  const long long n = (long long)blockIdx.x * WARP_KERNEL_WARPS + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (n >= N) return;  // whole warps leave together
-
-  const float dx = rays_d[n * 3], dy = rays_d[n * 3 + 1], dz = rays_d[n * 3 + 2];
-  const float dnorm = sqrtf(dx * dx + dy * dy + dz * dz);
-  const long long row = n * S;
-
-  float carry = 0.0f;  // log transmittance arriving at this chunk
-  float r = 0.0f, g = 0.0f, b = 0.0f, dep = 0.0f, ac = 0.0f;
-  bool done = false;  // warp-uniform
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int i = s0 + lane;
-    const bool valid = i < S;
-    float w = 0.0f;
-    if (!done) {
-      float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float zi = 0.0f, alpha = 0.0f, l1ma = 0.0f;
-      if (valid) {
-        q = raw[row + i];
-        zi = z[row + i];
-        const float dist = (i + 1 < S ? z[row + i + 1] - zi : 1e10f) * dnorm;
-        const float dens = density(q.w, act);
-        const float lam = dens * dist;
-        alpha = 1.0f - expf(-lam);
-        // log(1 - alpha + 1e-10) = logaddexp(-lam, log 1e-10), stably
-        const float hi = fmaxf(-lam, LOG_EPS), lo = fminf(-lam, LOG_EPS);
-        l1ma = hi + logf(1.0f + expf(lo - hi));
-      }
-      float incl = l1ma;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float t = __shfl_up_sync(FULL, incl, off);
-        if (lane >= off) incl += t;
-      }
-      float excl = __shfl_up_sync(FULL, incl, 1);
-      if (lane == 0) excl = 0.0f;
-      const float T = expf(carry + excl);
-      if (valid) {
-        w = alpha * T;
-        if (ert > 0.0f && !(T >= ert)) w = 0.0f;
-        r += w / (1.0f + expf(-q.x));
-        g += w / (1.0f + expf(-q.y));
-        b += w / (1.0f + expf(-q.z));
-        dep += w * zi;
-        ac += w;
-      }
-      carry += __shfl_sync(FULL, incl, 31);
-      // T only falls: below the threshold here, below it for the rest
-      if (ert > 0.0f && expf(carry) < ert) done = true;
-    }
-    if (valid) weights[row + i] = w;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    r += __shfl_xor_sync(FULL, r, off);
-    g += __shfl_xor_sync(FULL, g, off);
-    b += __shfl_xor_sync(FULL, b, off);
-    dep += __shfl_xor_sync(FULL, dep, off);
-    ac += __shfl_xor_sync(FULL, ac, off);
-  }
-  if (lane == 0) {
-    rgb_map[n * 3] = r;
-    rgb_map[n * 3 + 1] = g;
-    rgb_map[n * 3 + 2] = b;
-    depth[n] = dep;
-    acc[n] = ac;
-  }
 }
 
 // A lane's K consecutive samples: raw (rgb_raw, sigma_raw) and z.
@@ -371,17 +292,5 @@ extern "C" int launch_integrate(const void* raw, const void* z, const void* rays
     default: launch<CHUNK_K, true>(NERF_INTEGRATE_ARGS);
   }
 #undef NERF_INTEGRATE_ARGS
-  return (int)cudaGetLastError();
-}
-
-// The previous compositing kernel, for comparison: the same arguments and results.
-extern "C" int launch_integrate_warp(const void* raw, const void* z, const void* rays_d,
-                                     void* rgb_map, void* depth, void* acc, void* weights,
-                                     int N, int S, float ert, int act, void* stream) {
-  if (N <= 0 || S <= 0) return 0;
-  const int blocks = (N + WARP_KERNEL_WARPS - 1) / WARP_KERNEL_WARPS;
-  integrate_warp_kernel<<<blocks, WARP_KERNEL_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const float4*)raw, (const float*)z, (const float*)rays_d, (float*)rgb_map,
-      (float*)depth, (float*)acc, (float*)weights, N, S, ert, act);
   return (int)cudaGetLastError();
 }

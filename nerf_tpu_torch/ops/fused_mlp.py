@@ -282,16 +282,16 @@ def fused_nerf_eval_plain(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_launch(kp, pts, dirs, dtypes=(torch.bfloat16,)) -> int:
+def _check_launch(kp, pts, dirs) -> int:
     """P, after checking the inputs and that ``wbuf`` holds one of
-    ``dtypes`` (an other dtype raises as a bf16 buffer would)."""
+    ``KERNEL_DTYPES`` (an other dtype raises as a bf16 buffer would)."""
     P = pts.shape[0]
     if P > build.MAX_LAUNCH_ROWS:
         raise ValueError(f"{P} points in one call; split it into calls of at most "
                          f"{build.MAX_LAUNCH_ROWS}")
     build.check_cuda("pts", pts, torch.float32, (P, 3))
     build.check_cuda("dirs", dirs, torch.float32, (P, 3))
-    dt = kp["wbuf"].dtype if kp["wbuf"].dtype in dtypes else dtypes[0]
+    dt = kp["wbuf"].dtype if kp["wbuf"].dtype in KERNEL_DTYPES else KERNEL_DTYPES[0]
     build.check_cuda("wbuf", kp["wbuf"], dt, (WBUF_SIZE,), align=32)
     build.check_cuda("bbuf", kp["bbuf"], torch.float32, (BBUF_SIZE,))
     return P
@@ -310,7 +310,7 @@ def fused_nerf_eval(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
                            "for gradients")
     if pts.device.type == "cpu":
         return fused_nerf_eval_plain(kp, pts, dirs)
-    P = _check_launch(kp, pts, dirs, KERNEL_DTYPES)
+    P = _check_launch(kp, pts, dirs)
     out = torch.empty((P, 4), dtype=torch.float32, device=pts.device)
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     if kp["wbuf"].dtype == torch.float32:
@@ -348,23 +348,6 @@ def fused_nerf_eval_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
 fused_nerf_eval_f32.launches = 0
 
 
-def fused_nerf_eval_wmma(kp: Dict[str, torch.Tensor], pts: torch.Tensor,
-                         dirs: torch.Tensor) -> torch.Tensor:
-    """The previous forward kernel (nvcuda::wmma, ``csrc/fused_mlp.cuh``; the
-    wmma backward, ``fused_nerf_bwd_wmma``, recomputes its forward with it),
-    CUDA tensors only. No
-    path of the port calls it: it is the yardstick that the GPU tests and
-    ``chip_smoke.py`` hold ``fused_nerf_eval`` against."""
-    P = _check_launch(kp, pts, dirs)
-    out = torch.empty((P, 4), dtype=torch.float32, device=pts.device)
-    rc = _lib().launch_fused_nerf_wmma(pts.data_ptr(), dirs.data_ptr(), kp["wbuf"].data_ptr(),
-                                       kp["bbuf"].data_ptr(), out.data_ptr(), P,
-                                       torch.cuda.current_stream(pts.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_nerf wmma kernel launch failed: CUDA error {rc}")
-    return out
-
-
 def wgmma_layer_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [128, 256] @ w [256, 256] (bf16 CUDA tensors) -> float32, through the
     forward kernel's own ring, descriptors and wgmma products: the check of
@@ -385,9 +368,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("fused_mlp")
     p = ctypes.c_void_p
     lib.launch_fused_nerf.argtypes = [p, p, p, p, p, p, ctypes.c_int, p]
-    lib.launch_fused_nerf_wmma.argtypes = [p, p, p, p, p, ctypes.c_int, p]
     lib.launch_wgmma_layer_test.argtypes = [p, p, p, p]
-    for fn in (lib.launch_fused_nerf, lib.launch_fused_nerf_wmma, lib.launch_wgmma_layer_test):
+    for fn in (lib.launch_fused_nerf, lib.launch_wgmma_layer_test):
         fn.restype = ctypes.c_int
     lib.fused_nerf_buffer_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
     lib.fused_nerf_buffer_sizes.restype = None

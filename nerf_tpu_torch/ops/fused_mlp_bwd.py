@@ -45,7 +45,6 @@ _TILE = 128  # the kernels' point tile; the wrapper pads P to a multiple of it
 SLAB_ROWS = 64  # points in a block of the slab layout
 WGRAD_SPLITS = 6  # point ranges of the weight gradients: 21 blocks each, one wave on 132 SMs
 HEAD_SPLITS = 128  # point ranges of the heads' gradients (scalar work)
-WMMA_TILE, WMMA_MAX_SPLITS, WMMA_POINTS_PER_SPLIT = 64, 64, 1024  # the wmma backward's
 
 
 def splits_for(n_points: int):
@@ -54,12 +53,6 @@ def splits_for(n_points: int):
     there are."""
     blocks = n_points // SLAB_ROWS
     return max(1, min(WGRAD_SPLITS, blocks)), max(1, min(HEAD_SPLITS, blocks))
-
-
-def wmma_splits_for(n_points: int) -> int:
-    """Point ranges of the wmma backward's reduction: one per 1024 points,
-    at most 64."""
-    return max(1, min(WMMA_MAX_SPLITS, n_points // WMMA_POINTS_PER_SPLIT))
 
 
 def pack_slabs(t: torch.Tensor) -> torch.Tensor:
@@ -504,38 +497,6 @@ def launch_full(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tens
 fused_nerf_bwd.launches = 0
 
 
-def fused_nerf_bwd_wmma(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
-                        g: torch.Tensor, input_grads: bool = True):
-    """The wmma backward (``csrc/fused_mlp_bwd_wmma.cuh``: the wmma forward
-    with a row stash, wmma products), CUDA tensors only. No path of the port
-    calls it: it is the yardstick that the GPU tests and ``chip_smoke.py``
-    hold ``fused_nerf_bwd`` against. Returns {kgrads, dpts, ddirs, args,
-    keep}: ``_lib()[0].launch_fused_nerf_bwd_wmma(*args)`` launches it again
-    while ``keep`` (the tensors it reads and writes) lives."""
-    P = _check_inputs(kp, pts, dirs, g)
-    lib, sld, gld, pst, _, _ = _lib()
-    pts, dirs, g = _pad(WMMA_TILE, pts, dirs, g)
-    n = pts.shape[0]
-    splits = wmma_splits_for(n)
-    dev = pts.device
-    scratch = [torch.empty((n, sld), dtype=torch.bfloat16, device=dev),
-               torch.empty((n, gld), dtype=torch.bfloat16, device=dev),
-               torch.empty((splits, pst), dtype=torch.float32, device=dev)]
-    flat = torch.empty(WBUF_SIZE + BBUF_SIZE, dtype=torch.float32, device=dev)
-    dpts = torch.empty((n, 3), dtype=torch.float32, device=dev) if input_grads else None
-    ddirs = torch.empty((n, 3), dtype=torch.float32, device=dev) if input_grads else None
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    args = [pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), kp["wbuf"].data_ptr(),
-            kp["bbuf"].data_ptr(), *(t.data_ptr() for t in scratch), flat.data_ptr(), ptr(dpts),
-            ptr(ddirs), n, splits, int(input_grads), torch.cuda.current_stream(dev).cuda_stream]
-    rc = lib.launch_fused_nerf_bwd_wmma(*args)
-    if rc != 0:
-        raise RuntimeError(f"fused_nerf_bwd_wmma kernel launch failed: CUDA error {rc}")
-    return {"kgrads": _grads_of(flat, kp), "dpts": dpts[:P] if input_grads else None,
-            "ddirs": ddirs[:P] if input_grads else None, "args": args,
-            "keep": (pts, dirs, g, scratch, flat, dpts, ddirs)}
-
-
 def wgrad_product(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """x [64, 64]^T @ g [64, 256] (bf16 CUDA tensors, 64 points a row) ->
     float32 [64, 256], through the weight-gradient kernel's own slab layout,
@@ -558,9 +519,8 @@ def bind(lib: ctypes.CDLL):
     fused_mlp_bwd library, its functions' argument types set."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.launch_fused_nerf_bwd.argtypes = [p] * 16 + [i] * 5 + [p]
-    lib.launch_fused_nerf_bwd_wmma.argtypes = [p] * 11 + [i] * 3 + [p]
     lib.launch_wgrad_test.argtypes = [p] * 4
-    for fn in (lib.launch_fused_nerf_bwd, lib.launch_fused_nerf_bwd_wmma, lib.launch_wgrad_test):
+    for fn in (lib.launch_fused_nerf_bwd, lib.launch_wgrad_test):
         fn.restype = ctypes.c_int
     lib.fused_nerf_bwd_sizes.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
     lib.fused_nerf_bwd_sizes.restype = None
@@ -591,20 +551,10 @@ F32_TILE = 64
 F32_CHUNK = 1 << 18
 F32_SPLITS, F32_MIN_TILES_PER_SPLIT = 33, 8
 F32_PHASES_ALL = 15  # forward + stash, chain, weight gradients (3xTF32), reduce
-# the previous weight gradients (fmaf, one block per 128 x 128 tile and
-# range) in place of the 3xTF32 ones, with their own ranges: for comparison
-F32_PHASE_DW_FMAF = 16
-F32_PHASES_FMAF = F32_PHASES_ALL - 4 + F32_PHASE_DW_FMAF
-F32_FMAF_MAX_SPLITS, F32_FMAF_TILES_PER_SPLIT = 16, 64
 
 
 def f32_splits_for(n_points: int) -> int:
     return max(1, min(F32_SPLITS, (n_points // F32_TILE) // F32_MIN_TILES_PER_SPLIT))
-
-
-def f32_fmaf_splits_for(n_points: int) -> int:
-    """The ranges the fmaf weight gradients were launched with."""
-    return max(1, min(F32_FMAF_MAX_SPLITS, (n_points // F32_TILE) // F32_FMAF_TILES_PER_SPLIT))
 
 
 # Layout of the float32 kernels' buffers (csrc/fused_mlp_f32.cuh,
@@ -724,15 +674,13 @@ def _units_arg(fold_bias: bool = True):
 
 def launch_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
                g: torch.Tensor, input_grads: bool = True, chunk: int = F32_CHUNK,
-               phases: int = F32_PHASES_ALL, splits: Optional[int] = None,
-               fold_bias: bool = True):
+               splits: Optional[int] = None, fold_bias: bool = True):
     """The float32 backward's launches on CUDA tensors (not counted:
     ``fused_nerf_bwd`` counts them). Returns {kgrads, dpts, ddirs, raw (the
     recomputed forward [P, 4]), stash_slabs ([tiles, SLD, 64] float32, of the
     last chunk), gbuf_slabs, args, keep}: ``_lib_f32()[0].launch_fused_nerf_bwd_f32(*args)``
     launches it again while ``keep`` lives; its last int but one selects the
-    launches (``F32_PHASES_ALL`` all four; ``F32_PHASES_FMAF`` the previous
-    weight gradients instead of the tensor cores'). ``splits`` overrides the
+    launches (``F32_PHASES_ALL`` all four). ``splits`` overrides the
     point ranges of the weight gradients, ``fold_bias`` False takes the
     units with the biases apart (comparisons only)."""
     P = _check_inputs(kp, pts, dirs, g, torch.float32)
@@ -756,7 +704,7 @@ def launch_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tenso
     args = [pts.data_ptr(), dirs.data_ptr(), g.data_ptr(), kp["wbuf"].data_ptr(),
             kp["bbuf"].data_ptr(), kp["wbuf_t"].data_ptr(), stash.data_ptr(), gbuf.data_ptr(),
             partial.data_ptr(), flat.data_ptr(), raw.data_ptr(), ptr(dpts), ptr(ddirs),
-            ctypes.addressof(units), n, chunk, splits, n_units, int(input_grads), phases,
+            ctypes.addressof(units), n, chunk, splits, n_units, int(input_grads), F32_PHASES_ALL,
             torch.cuda.current_stream(dev).cuda_stream]
     rc = lib.launch_fused_nerf_bwd_f32(*args)
     if rc != 0:
@@ -765,17 +713,6 @@ def launch_f32(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tenso
     return {"kgrads": _grads_of(flat, kp), "dpts": dpts[:P] if input_grads else None,
             "ddirs": ddirs[:P] if input_grads else None, "raw": raw[:P],
             "stash_slabs": stash, "gbuf_slabs": gbuf, "args": args, "keep": keep}
-
-
-def fused_nerf_bwd_f32_fmaf(kp: Dict[str, torch.Tensor], pts: torch.Tensor, dirs: torch.Tensor,
-                            g: torch.Tensor, input_grads: bool = True, chunk: int = F32_CHUNK):
-    """B2-f32 with its previous weight gradients (fmaf on the CUDA cores, its
-    own point ranges), CUDA tensors only. No path of the port calls it: it is
-    what the GPU tests, ``chip_smoke.py`` and the variants tool hold the
-    tensor-core weight gradients against. Returns ``launch_f32``'s dict."""
-    n = pts.shape[0] + (-pts.shape[0]) % F32_TILE
-    return launch_f32(kp, pts, dirs, g, input_grads, chunk, F32_PHASES_FMAF,
-                      f32_fmaf_splits_for(min(n, chunk)))
 
 
 @functools.cache

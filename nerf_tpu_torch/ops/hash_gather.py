@@ -6,17 +6,14 @@ table and int32 indices: on CUDA tensors it launches the kernel of
 ``csrc/hash_gather.cu`` (the port of the Pallas ``_gather_kernel``,
 ``nerf_tpu/ops/hash_gather.py:45``; several rows a thread, streaming cache
 hints, the table kept in L2), on CPU tensors it runs ``gather_rows_plain``.
-``gather_rows_simple`` launches the previous kernel (one vector a thread),
-kept for comparison; ``gather_bytes`` counts the bytes its bound and its
-sector-grain floor need. ``scatter_add_rows(idx, cot, n_rows)`` is its
-transpose, the table's gradient: the kernel sums runs of equal indices
-within a warp in registers, adds each run's sum into a float32 buffer with
-vector reductions and rounds once to the cotangent's dtype;
+``gather_bytes`` counts the bytes its bound and its sector-grain floor
+need. ``scatter_add_rows(idx, cot, n_rows)`` is its transpose, the table's
+gradient: the kernel sums runs of equal indices within a warp in
+registers, adds each run's sum into a float32 buffer with vector
+reductions and rounds once to the cotangent's dtype;
 ``scatter_add_rows_plain`` does the same with ``index_add_`` on a float32
-buffer. ``scatter_add_rows_atomic`` launches the previous kernel (one
-float32 atomic per element), kept for comparison; ``warp_runs`` and
-``scatter_add_rows_runs`` repeat the kernel's runs and order of sums in
-PyTorch for the CPU tests. In the JAX package
+buffer. ``warp_runs`` and ``scatter_add_rows_runs`` repeat the kernel's
+runs and order of sums in PyTorch for the CPU tests. In the JAX package
 the hash encoder gathers with XLA, and its backward is XLA's scatter-add in
 the table's dtype (the slotpack VJP); the port's float32 accumulation is
 the difference, bounded in ``tests/test_torch_hashgrid.py``.
@@ -140,7 +137,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lie in [0, R); the kernel traps on any other."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)
-    out = _gather(_lib().launch_gather_rows, table, idx)
+    out = _gather(table, idx)
     gather_rows.launches += 1
     return out
 
@@ -148,23 +145,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 gather_rows.launches = 0
 
 
-def gather_rows_simple(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The previous gather kernel (one vector a thread in a grid-stride
-    loop, ``launch_gather_rows_simple``), CUDA tensors only. No path of the
-    port calls it: it is the yardstick that the GPU tests and
-    ``chip_smoke.py`` hold ``gather_rows`` against."""
-    return _gather(_lib().launch_gather_rows_simple, table, idx)
-
-
-def _gather(fn, table, idx):
+def _gather(table, idx):
     _check(idx, table, "gather_rows")
     n = idx.shape[0]
     build.check_cuda("table", table, table.dtype, align=16)
     build.check_cuda("idx", idx, torch.int32, (n,))
     out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=table.device)
-    rc = fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n,
-            table.shape[1] * table.element_size(),
-            torch.cuda.current_stream(table.device).cuda_stream)
+    rc = _lib().launch_gather_rows(table.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                   table.shape[0], n, table.shape[1] * table.element_size(),
+                                   torch.cuda.current_stream(table.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error {rc}")
     return out
@@ -203,7 +192,7 @@ def scatter_add_rows(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch
     for CPU tensors."""
     if cot.device.type == "cpu":
         return scatter_add_rows_plain(idx, cot, n_rows)
-    out = _scatter(_lib().launch_scatter_add_rows, idx, cot, n_rows)
+    out = _scatter(idx, cot, n_rows)
     scatter_add_rows.launches += 1
     return out
 
@@ -211,15 +200,7 @@ def scatter_add_rows(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch
 scatter_add_rows.launches = 0
 
 
-def scatter_add_rows_atomic(idx: torch.Tensor, cot: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """The previous scatter-add kernel (one float32 atomicAdd per element,
-    ``launch_scatter_add_rows_atomic``), CUDA tensors only. No path of the
-    port calls it: it is the yardstick that the GPU tests and
-    ``chip_smoke.py`` hold ``scatter_add_rows`` against."""
-    return _scatter(_lib().launch_scatter_add_rows_atomic, idx, cot, n_rows)
-
-
-def _scatter(fn, idx, cot, n_rows):
+def _scatter(idx, cot, n_rows):
     _check(idx, cot, "scatter_add_rows")
     n, width = cot.shape
     build.check_cuda("idx", idx, torch.int32, (n,))
@@ -227,8 +208,10 @@ def _scatter(fn, idx, cot, n_rows):
     acc = torch.empty((n_rows, width), dtype=torch.float32, device=cot.device)
     out = acc if cot.dtype == torch.float32 else torch.empty((n_rows, width), dtype=cot.dtype,
                                                              device=cot.device)
-    rc = fn(idx.data_ptr(), cot.data_ptr(), acc.data_ptr(), out.data_ptr(), n_rows, n, width,
-            int(cot.dtype == torch.bfloat16), torch.cuda.current_stream(cot.device).cuda_stream)
+    rc = _lib().launch_scatter_add_rows(idx.data_ptr(), cot.data_ptr(), acc.data_ptr(),
+                                        out.data_ptr(), n_rows, n, width,
+                                        int(cot.dtype == torch.bfloat16),
+                                        torch.cuda.current_stream(cot.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scatter_add_rows kernel launch failed: CUDA error {rc}")
     return out
@@ -242,12 +225,10 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a built ``csrc/hash_gather.cu``'s exports."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    for fn in (lib.launch_gather_rows, lib.launch_gather_rows_simple):
-        fn.argtypes = [p, p, p, i64, i32, i32, p]
-        fn.restype = i32
-    for fn in (lib.launch_scatter_add_rows, lib.launch_scatter_add_rows_atomic):
-        fn.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
-        fn.restype = i32
+    lib.launch_gather_rows.argtypes = [p, p, p, i64, i32, i32, p]
+    lib.launch_gather_rows.restype = i32
+    lib.launch_scatter_add_rows.argtypes = [p, p, p, p, i64, i32, i32, i32, p]
+    lib.launch_scatter_add_rows.restype = i32
     lib.launch_scatter_add_rows_part.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
     lib.launch_scatter_add_rows_part.restype = i32
     return lib

@@ -7,9 +7,8 @@ CPU tensors. Their transmittance is the Pallas kernel's: an exclusive sum of
 log(1 - alpha + 1e-10), each term a stable logaddexp, rather than the
 cumprod of ``render/composite.py``; both agree with it to float32 rounding.
 
-``integrate_warp`` launches the previous kernel (32 samples a round), kept for
-comparison; ``lane_transmittance`` repeats the kernel's order of sums in
-PyTorch for the CPU tests.
+``lane_transmittance`` repeats the kernel's order of sums in PyTorch for the
+CPU tests.
 
 While spans are on (``utils/profiling``: a torch profiler runs), ``integrate``
 passes the kernel a device counter of the samples whose weight early ray
@@ -161,8 +160,8 @@ def integrate(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
     if profiling.enabled():
         cut = _ert_cut_buffer(raw.device)
         profiling.count("b3.samples", z_vals.numel())
-    out = _launch(_lib().launch_integrate, raw, z_vals, rays_d, ert_threshold, white_bkgd,
-                  sigma_activation, (None if cut is None else cut.data_ptr(),))
+    out = _launch(raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation,
+                  None if cut is None else cut.data_ptr())
     integrate.launches += 1
     return out
 
@@ -193,18 +192,7 @@ def ert_cut_reset() -> None:
         buf.zero_()
 
 
-def integrate_warp(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
-                   ert_threshold: float = 0.0, white_bkgd: bool = True,
-                   sigma_activation: str = "relu") -> Dict[str, torch.Tensor]:
-    """The previous compositing kernel (32 samples a round,
-    ``launch_integrate_warp``), CUDA tensors only. No path of the port calls
-    it: it is the yardstick that the GPU tests and ``chip_smoke.py`` hold
-    ``integrate`` against."""
-    return _launch(_lib().launch_integrate_warp, raw, z_vals, rays_d, ert_threshold, white_bkgd,
-                   sigma_activation)
-
-
-def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation, extra=()):
+def _launch(raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation, ert_cut):
     if sigma_activation not in _ACTIVATIONS:
         raise ValueError(f"unknown sigma activation: {sigma_activation!r}")
     N, S = z_vals.shape
@@ -218,10 +206,11 @@ def _launch(fn, raw, z_vals, rays_d, ert_threshold, white_bkgd, sigma_activation
     depth = torch.empty((N,), **kw)
     acc = torch.empty((N,), **kw)
     weights = torch.empty((N, S), **kw)
-    rc = fn(raw.data_ptr(), z_vals.data_ptr(), rays_d.data_ptr(), rgb_map.data_ptr(),
-            depth.data_ptr(), acc.data_ptr(), weights.data_ptr(), N, S,
-            float(ert_threshold), _ACTIVATIONS.index(sigma_activation), *extra,
-            torch.cuda.current_stream(raw.device).cuda_stream)
+    rc = _lib().launch_integrate(raw.data_ptr(), z_vals.data_ptr(), rays_d.data_ptr(),
+                                 rgb_map.data_ptr(), depth.data_ptr(), acc.data_ptr(),
+                                 weights.data_ptr(), N, S, float(ert_threshold),
+                                 _ACTIVATIONS.index(sigma_activation), ert_cut,
+                                 torch.cuda.current_stream(raw.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"integrate kernel launch failed: CUDA error {rc}")
     out = finish_maps(rgb_map, depth, acc, white_bkgd)
@@ -237,11 +226,10 @@ def _lib() -> ctypes.CDLL:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the argument types of a built ``csrc/integrate.cu``'s exports."""
     p = ctypes.c_void_p
-    args = [p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int]
-    lib.launch_integrate.argtypes = args + [p, p]  # ..., ERT's counter (or null), stream
-    lib.launch_integrate_warp.argtypes = args + [p]
-    for fn in (lib.launch_integrate, lib.launch_integrate_warp):
-        fn.restype = ctypes.c_int
+    # raw, z, rays_d, rgb_map, depth, acc, weights, N, S, ert, act, ERT's counter (or null), stream
+    lib.launch_integrate.argtypes = [p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                ctypes.c_int, p, p]
+    lib.launch_integrate.restype = ctypes.c_int
     return lib
 
 

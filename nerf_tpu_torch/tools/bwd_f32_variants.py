@@ -2,7 +2,7 @@
 buys: variants of csrc/fused_mlp_bwd_f32.cu, built and timed on the GPU.
 
     python -m nerf_tpu_torch.tools.bwd_f32_variants [--points 196608] [--reps 5]
-        [--only kernel,fmaf] [--times-only] [--splits 11,22,33]
+        [--only kernel,tf32x1] [--times-only] [--splits 11,22,33]
 
 Each variant is the source with a line replaced (``VARIANTS``) or another
 unit table (``TABLES``):
@@ -16,8 +16,6 @@ unit table (``TABLES``):
   one_stage   a ring of one stage: no load overlaps the products;
   no_promote  the products summed on the tensor cores over the whole point
               range, never promoted;
-  fmaf        the previous weight gradients (fmaf on the CUDA cores, one block
-              a 128 x 128 tile and range), from the kernel's library;
   loads_only  (timing only) the ring and the split, no products;
   stream_only (timing only) the ring alone: no split, no products;
   compute_only (timing only) no loads and no split: the products on
@@ -71,7 +69,7 @@ VARIANTS["stream_only"] = VARIANTS["loads_only"] + [
     ("      if (k >= nchunks) break;\n", "      break;\n")]
 DIAGNOSTIC = ("loads_only", "stream_only", "compute_only")  # timing only: not the function
 # variants that run the kernel's library with another unit table or launch
-TABLES = {"no_fold": "kernel", "fmaf": "kernel"}
+TABLES = {"no_fold": "kernel"}
 
 
 def _time_one(name: str, so: str, n: int, reps: int, times_only: bool = False,
@@ -98,24 +96,18 @@ def _time_one(name: str, so: str, n: int, reps: int, times_only: bool = False,
 
     def run(splits=None):
         def fn(kp, p, d, gg):
-            if name == "fmaf":
-                return fb.fused_nerf_bwd_f32_fmaf(kp, p, d, gg, False)["kgrads"]
             return fb.launch_f32(kp, p, d, gg, False, splits=splits,
                                  fold_bias=name != "no_fold")["kgrads"]
         return fn
 
-    if name == "fmaf":
-        full, dw_phase = fb.fused_nerf_bwd_f32_fmaf(kp, pts, dirs, g, False), fb.F32_PHASE_DW_FMAF
-    else:
-        full, dw_phase = fb.launch_f32(kp, pts, dirs, g, False, fold_bias=name != "no_fold"), 4
-    args = list(full["args"])
+    args = list(fb.launch_f32(kp, pts, dirs, g, False, fold_bias=name != "no_fold")["args"])
 
     def timed(phases: int) -> float:
         args[-2] = phases
         return f32_check.time_ms(lambda: bound[0].launch_fused_nerf_bwd_f32(*args), reps)
 
-    dw_ms = timed(dw_phase)
-    whole_ms = timed(fb.F32_PHASES_ALL - 4 + dw_phase)
+    dw_ms = timed(4)
+    whole_ms = timed(fb.F32_PHASES_ALL)
     if name == "kernel" and split_counts:
         def dw_at(s):
             a = list(fb.launch_f32(kp, pts, dirs, g, False, splits=s)["args"])

@@ -12,13 +12,13 @@ launch argument:
                (its mask bits stay): the cost of the stash's bulk stores;
   no_gbuf      the chain stores no layer gradients to gbuf: their cost;
   stash_masks  the chain reads its ReLU masks from the bf16 stash in device
-               memory (4 KB a point, as the wmma chain did) instead of the
-               forward's bits staged in shared memory;
+               memory (4 KB a point) instead of the forward's bits staged in
+               shared memory;
   splits64     the weight gradients over 64 point ranges (21 x 64 blocks,
                ~10 waves of f32 partials) instead of one wave of 6.
 The variants that compute the backward's function (kernel, stash_masks,
-splits64) are held against the wmma backward of the same library (relative
-norm of the worst gradient leaf). Each variant runs in its own process under
+splits64) are held against the plain version (``fused_nerf_bwd_plain``;
+relative norm of the worst gradient leaf). Each variant runs in its own process under
 a timeout, so one that hangs costs only its line. Times are CUDA events over
 ``--reps`` launches on random points (the lego fine model, no input
 gradients, as the train step calls it), the whole backward and each of its
@@ -143,10 +143,10 @@ def _time_one(name: str, so: str, n: int, reps: int) -> None:
     agree = ""
     if name in SAME_FUNCTION:
         timed(fb.PHASES_ALL)
-        want = fb.fused_nerf_bwd_wmma(kp, pts, dirs, g, False)["kgrads"]
+        want = fb.fused_nerf_bwd_plain(kp, pts, dirs, g, input_grads=False)[0]
         worst = max(float((out["kgrads"][k].double() - want[k].double()).norm()
                           / want[k].double().norm().clamp_min(1e-30)) for k in fb._GRAD_KEYS)
-        agree = f"; worst leaf against the wmma backward {worst:.3g}"
+        agree = f"; worst leaf against the plain version {worst:.3g}"
     print(f"{name}: {total:.4f} ms on {n} points ({parts}){agree}", flush=True)
 
 

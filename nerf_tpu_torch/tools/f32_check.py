@@ -278,11 +278,6 @@ def dw_bound_ms(n_points):
     return n_points * 2 * MACS_PER_POINT * 3 / PEAK_TF32 * 1e3
 
 
-def dw_fmaf_bound_ms(n_points):
-    """The same multiply-adds as float32 fmaf at the CUDA cores' peak."""
-    return n_points * 2 * MACS_PER_POINT / PEAK_F32 * 1e3
-
-
 def dw_byte_floor_ms(n_points, splits):
     """The weight-gradient launch's bytes: every stash and gbuf column of
     every point read once (all 2,528 + 2,436 are some product's operand) and

@@ -15,11 +15,11 @@ Each variant is the kernel's source (``csrc/fused_mlp_wgmma.cuh``, which
   stages3      a ring of 3 stages of 32 KB instead of 4;
   chunk32      chunks of 32 K-rows in a ring of 8 stages of 16 KB.
 The variants that compute the kernel's function (kernel, no_turns, stages3,
-chunk32) are held against the wmma forward. Each variant runs in its own
-process under a timeout, so a variant that hangs costs only its own line.
-Times are CUDA events over ``--reps`` launches on random points, two rounds
-in opposite orders, on one card; the card's name and power limit head the
-output. Without a GPU it exits with an error.
+chunk32) are held against the plain version (``fused_nerf_eval_plain``).
+Each variant runs in its own process under a timeout, so a variant that
+hangs costs only its own line. Times are CUDA events over ``--reps``
+launches on random points, two rounds in opposite orders, on one card; the
+card's name and power limit head the output. Without a GPU it exits with an error.
 """
 from __future__ import annotations
 
@@ -133,9 +133,9 @@ def _time_one(name: str, so: str, n: int, reps: int) -> None:
     torch.cuda.synchronize()
     agree = ""
     if name in SAME_FUNCTION:
-        want = fused_mlp.fused_nerf_eval_wmma(kp, pts, dirs)
+        want = fused_mlp.fused_nerf_eval_plain(kp, pts, dirs)
         rel = ((out - want).abs() / (1.0 + want.abs())).max()
-        agree = f"; max |v - wmma| / (1 + |wmma|) {float(rel):.3g}"
+        agree = f"; max |v - plain| / (1 + |plain|) {float(rel):.3g}"
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):

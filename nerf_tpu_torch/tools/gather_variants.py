@@ -15,10 +15,7 @@ Each variant is the source with a line replaced (``VARIANTS``):
   no_evict_last   the table read without the L2 policy;
   indices_cached  indices through the read-only path (no .cs);
   indices_no_allocate  indices by ld.global.nc.L1::no_allocate;
-  output_cached   plain stores (no .cs);
-  simple          the previous kernel (``launch_gather_rows_simple``: one
-                  vector a thread in a grid-stride loop) from the kernel's
-                  own source.
+  output_cached   plain stores (no .cs).
 Every variant is held exactly against the plain version and timed on seven
 row sets (``SHAPES``): a corner NeRF's fine batch (1024 rays of 192 sorted
 depths in [2, 6] from a sphere of radius 4 through the scene's box, 16
@@ -31,11 +28,10 @@ of 32 bytes, 25,165,824 of 4), and a probe of the L2's rate: 50,331,648
 uniform rows of a 4 MB table; random bf16 tables of the models' sizes. Each
 line gives the time, its share of the bound (``hash_gather.gather_bytes``:
 each index, each distinct row and each output row once, at 3.35 TB/s) and
-the sector floor (the same at 32-byte grain); the kernel's line also the
-previous kernel in turns (kernel, previous, previous, kernel) and
+the sector floor (the same at 32-byte grain); the kernel's line also
 ``torch.index_select`` and, for rows under 16 bytes, the table sector
-requests a row that each kernel's warps make (``warp_sectors``) and the
-rate through L2 that they imply. Times are CUDA events over ``--reps`` launches,
+requests a row that the kernel's warps make (``warp_sectors``) and the rate
+through L2 that they imply. Times are CUDA events over ``--reps`` launches,
 warm (the table is read again by every launch, as a step's two gathers and
 a request's tiles read it), two rounds in opposite orders, each variant in
 its own process under a timeout, on one card; the card's name and power
@@ -76,7 +72,6 @@ VARIANTS: variants.Variants = {
     "indices_cached": [_INDEX_CACHED],
     "indices_no_allocate": [(_INDEX, "constexpr int INDEX_HINT = 2;")],
     "output_cached": [_OUT_CACHED],
-    "simple": [],
 }
 SHAPES = ("corner NeRF fine batch", "4-D encoder rows", "3-D encoder rows",
           "cellpack fine batch", "cellpack random points", "corner random points", "L2 probe")
@@ -149,10 +144,10 @@ def shape_rows(name: str, dev, seed: int = 0):
 def warp_sectors(idx, row_bytes: int, lane_rows: int) -> float:
     """Table sector requests a row of a gather whose warps' load
     instructions each read row e of 32 lanes that hold lane_rows
-    consecutive rows each (lane_rows 1: 32 consecutive rows, the previous
-    kernel): the distinct 32-byte sectors among each instruction's 32 rows,
-    over whole groups of 32 lane_rows rows. For rows of at most 16 bytes,
-    which lie inside one sector."""
+    consecutive rows each (lane_rows 1: 32 consecutive rows): the distinct
+    32-byte sectors among each instruction's 32 rows, over whole groups of
+    32 lane_rows rows. For rows of at most 16 bytes, which lie inside one
+    sector."""
     m = idx.shape[0] // (32 * lane_rows) * (32 * lane_rows)
     if m == 0:
         raise ValueError(f"warp_sectors: {idx.shape[0]} rows make no group of {32 * lane_rows}")
@@ -195,28 +190,21 @@ def _time_one(name: str, so: str, reps: int, shapes) -> None:
         out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=dev)
         args = (table.data_ptr(), idx.data_ptr(), out.data_ptr(), table.shape[0], n, row_b,
                 stream)
-        fn = lib.launch_gather_rows_simple if name == "simple" else lib.launch_gather_rows
-        gather = hash_gather.gather_rows_simple if name == "simple" else hash_gather.gather_rows
-        same = torch.equal(gather(table, idx), hash_gather.gather_rows_plain(table, idx))
-        ms = timed(lambda: fn(*args))
+        same = torch.equal(hash_gather.gather_rows(table, idx),
+                           hash_gather.gather_rows_plain(table, idx))
+        ms = timed(lambda: lib.launch_gather_rows(*args))
         bound_b, sector_b = hash_gather.gather_bytes(idx, row_b)
         bound, floor = bound_b / PEAK_BYTES * 1e3, sector_b / PEAK_BYTES * 1e3
         extra = ""
         if name == "kernel":
-            calls = {"new": lambda: lib.launch_gather_rows(*args),
-                     "old": lambda: lib.launch_gather_rows_simple(*args)}
-            turns = [timed(calls[k]) for k in ("new", "old", "old", "new")]
             lib_ms = timed(lambda: torch.index_select(table, 0, idx))
-            extra = (f"; in turns kernel {(turns[0] + turns[3]) / 2:.4f}, previous "
-                     f"{(turns[1] + turns[2]) / 2:.4f} ms ({', '.join(f'{t:.4f}' for t in turns)})"
-                     f"; torch.index_select {lib_ms:.4f} ms")
+            extra = f"; torch.index_select {lib_ms:.4f} ms"
             if row_b < 16:
                 lane_rows = min(_switch(MAIN.read_text(), "ROWS") * row_b, 16) // row_b
-                for who, k, t in (("kernel", lane_rows, ms), ("previous", 1, turns[1])):
-                    req = warp_sectors(idx, row_b, k)
-                    l2 = req * 32 * n + 4 * n + n * row_b
-                    extra += (f"; {who}: {req:.3f} table sector requests a row, {l2 / 1e9:.3f} "
-                              f"GB through L2 at {l2 / t / 1e9:.2f} TB/s")
+                req = warp_sectors(idx, row_b, lane_rows)
+                l2 = req * 32 * n + 4 * n + n * row_b
+                extra += (f"; {req:.3f} table sector requests a row, {l2 / 1e9:.3f} GB through "
+                          f"L2 at {l2 / ms / 1e9:.2f} TB/s")
         print(f"{name}, {shape} ({n} rows of {row_b} B, {int(torch.unique(idx).numel())} "
               f"distinct): {ms:.4f} ms, {bound / ms:.3f} of the bound {bound:.4f} ms, sector "
               f"floor {floor:.4f} ms; {'exact' if same else 'DIFFERS from plain'}{extra}",

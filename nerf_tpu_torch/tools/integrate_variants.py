@@ -17,15 +17,13 @@ Each variant is the source with a line replaced (``VARIANTS``):
 Every variant is held against the plain version (largest absolute error
 over rgb, depth, acc and the weights) and timed at N x S = 8192 x 192 and
 8192 x 64 (a lego serving tile, fine and coarse) and 1024 x 192 and 1024 x
-64 (a hash-grid serving tile or a train batch of either model); the
-kernel's line also gives the previous design (``launch_integrate_warp``,
-32 samples a round, 8 warps a block) from the same library. Inputs are
+64 (a hash-grid serving tile or a train batch of either model). Inputs are
 random: depths sorted in [2, 6], densities 2 N(0, 1) - 3 under ReLU (most
 rays stay transparent, as on the lego tiles), ERT at 0.01. Times are CUDA
-events around a CUDA graph of ``--reps`` launches (so the host's launch time,
-which exceeds a few-microsecond kernel's own, stays out), two rounds in opposite orders, each
-variant in its own process under a timeout, on one card; the card's name
-and power limit head the output. Without a GPU it exits with an error.
+events around a CUDA graph of ``--reps`` launches (so the host's launch
+time, which exceeds a few-microsecond kernel's own, stays out), two rounds
+in opposite orders, each variant in its own process under a timeout, on one
+card; the card's name and power limit head the output. Without a GPU it exits with an error.
 """
 from __future__ import annotations
 
@@ -79,16 +77,12 @@ def _time_one(name: str, so: str, reps: int) -> None:
         outs = [torch.empty(shape, device=dev) for shape in ((n, 3), (n,), (n,), (n, s))]
         args = [t.data_ptr() for t in (raw, z, d, *outs)] + [n, s, ERT, 0]
 
-        def timed(fn, *extra) -> float:
-            if fn(*args, *extra, torch.cuda.current_stream().cuda_stream) != 0:
-                raise RuntimeError(f"{name}: launch failed")
-            return variants.graph_ms(
-                lambda: fn(*args, *extra, torch.cuda.current_stream().cuda_stream), reps)
+        def launch():  # no ERT counter
+            return lib.launch_integrate(*args, None, torch.cuda.current_stream().cuda_stream)
 
-        cell = f"{n}x{s} {timed(lib.launch_integrate, None):.4f}"  # no ERT counter
-        if name == "kernel":
-            cell += f" (previous {timed(lib.launch_integrate_warp):.4f})"
-        cells.append(cell)
+        if launch() != 0:
+            raise RuntimeError(f"{name}: launch failed")
+        cells.append(f"{n}x{s} {variants.graph_ms(launch, reps):.4f}")
         got = tint.integrate(raw, z, d, ERT, True, "relu")
         want = tint.integrate_plain(raw, z, d, ERT, True, "relu")
         err = max(err, max(float((got[k] - want[k]).abs().max())

@@ -16,8 +16,8 @@ The variants that compute the function (kernel, scalar_atomics,
 no_aggregation) are held against the plain version within
 ``scatter_add_tolerance``. Each line gives the whole scatter-add and its
 three launches alone (memset, accumulation, rounding); the kernel's line
-also the previous design (``launch_scatter_add_rows_atomic``) from the same
-library. The input is a hash-grid train step's fine batch as the encoder
+also the runs of equal indices in warps of 32 rows and the distinct rows.
+The input is a hash-grid train step's fine batch as the encoder
 indexes it: ``--rays`` rays of ``--samples`` sorted depths in [2, 6] from a
 sphere of radius 4 through the scene's box, 16 levels, the cellpack table
 [16 x 65,536, 16] bf16, bf16 cotangents. Times are CUDA events over
@@ -136,10 +136,9 @@ def _time_one(name: str, so: str, n_rays: int, n_samples: int, reps: int) -> Non
         worst = float(((got.double() - want.double()).abs() / tol.clamp_min(1e-30)).max())
         extra = f"; worst err / tolerance against the plain version {worst:.3g}"
     if name == "kernel":
-        atomic = timed(lambda: lib.launch_scatter_add_rows_atomic(*args, stream))
         runs = int(hash_gather.warp_runs(idx)[2][:n].sum())
-        extra += (f"; the previous (atomic) kernel {atomic:.4f} ms; {runs} runs in warps of 32 "
-                  f"rows, {int(torch.unique(idx).numel())} distinct rows")
+        extra += (f"; {runs} runs in warps of 32 rows, {int(torch.unique(idx).numel())} "
+                  f"distinct rows")
     print(f"{name}: {total:.4f} ms on {n} rows of {width} bf16 ({parts}){extra}", flush=True)
 
 

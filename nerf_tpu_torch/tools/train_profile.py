@@ -1,7 +1,7 @@
 """Where a train step's time goes on the GPU, by torch.profiler.
 
     python -m nerf_tpu_torch.tools.train_profile [--cfg_file FILE] [--steps 20] [--warmup 5]
-        [--nccl] [--gather_turns] [key value ...]
+        [--nccl] [key value ...]
 
 With the default configs/nerf/lego.yaml it resumes the committed lego state
 (checkpoints/nerf/lego/nerf, epoch 49), builds the serving path's
@@ -24,11 +24,6 @@ data-parallel run at world 1 (a lone NCCL process group; the gradients'
 all-reduce) in turns (NCCL, none, none, NCCL) of --steps steps, each turn
 timed by the host clock with a synchronize a step and by CUDA events with
 none; then the profile of the step over the group.
-``--gather_turns`` (a hash-grid config): first the step with B4 as it is
-and with the previous gather kernel (``launch_gather_rows_simple``) in
-turns (previous, kernel, kernel, previous; the first turn runs before the
-process has launched the kernel, whose L2 evict_last policy on the table
-could favour a later turn of the previous kernel), each timed as above.
 """
 from __future__ import annotations
 
@@ -101,37 +96,6 @@ def _timed_steps(step, steps: int):
     return float(np.median(host)) * 1e3, start.elapsed_time(end) / steps
 
 
-class _PreviousGather:
-    """A stand-in for the built hash_gather library whose launch_gather_rows
-    is the previous kernel; every other export is the library's own."""
-
-    def __init__(self, lib):
-        self._lib = lib
-
-    def __getattr__(self, name):
-        return getattr(self._lib, "launch_gather_rows_simple" if name == "launch_gather_rows"
-                       else name)
-
-
-def _gather_turns(step, steps: int, warmup: int) -> None:
-    from ..ops import hash_gather
-
-    real = hash_gather._lib
-    libs = {"kernel": real(), "previous": _PreviousGather(real())}
-    turns = {"previous": [], "kernel": []}
-    try:
-        for k in ("previous", "kernel", "kernel", "previous"):
-            hash_gather._lib = lambda lib=libs[k]: lib
-            for _ in range(warmup):
-                step()
-            turns[k].append(_timed_steps(step, steps))
-    finally:
-        hash_gather._lib = real
-    for k, v in turns.items():
-        print(f"B4 {k}: turns of {steps} steps, ms per step (host-clock median, CUDA events) "
-              f"{[(round(a, 4), round(b, 4)) for a, b in v]}")
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--cfg_file", default=os.path.join(ROOT, "configs/nerf/lego.yaml"))
@@ -140,8 +104,6 @@ def main(argv=None) -> int:
     parser.add_argument("--top", type=int, default=15)
     parser.add_argument("--nccl", action="store_true",
                         help="the step over a world-1 NCCL process group")
-    parser.add_argument("--gather_turns", action="store_true",
-                        help="the step with B4 and with the previous gather kernel in turns")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -185,28 +147,14 @@ def main(argv=None) -> int:
     def step(g=group):
         train_step(state, imgs, poses, K, tx, opts, n_rays, grid, gen, group=g)
 
-    if args.gather_turns:
-        _gather_turns(step, args.steps, args.warmup)
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
     if group is not None:
         turns = {"nccl": [], "none": []}
         for k in ("nccl", "none", "none", "nccl"):
-            g = group if k == "nccl" else None
-            host = []
-            for _ in range(args.steps):
-                t = time.perf_counter()
-                step(g)
-                torch.cuda.synchronize()
-                host.append(time.perf_counter() - t)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(args.steps):
-                step(g)
-            end.record()
-            torch.cuda.synchronize()
-            turns[k].append((float(np.median(host)) * 1e3, start.elapsed_time(end) / args.steps))
+            turns[k].append(_timed_steps(lambda g=group if k == "nccl" else None: step(g),
+                                         args.steps))
         for k, v in turns.items():
             print(f"{k}: turns of {args.steps} steps, ms per step (host-clock median, CUDA "
                   f"events) {[(round(a, 4), round(b, 4)) for a, b in v]}; means "

@@ -147,6 +147,35 @@ def test_repack_keeps_the_forward_buffers(lego, model):
     assert kp["bbuf"].shape == (fused_mlp.BBUF_SIZE,)
 
 
+def test_the_shared_header_matches_the_wrappers_layout():
+    """csrc/fused_mlp.cuh, the layout that B1, B2 and the wgmma forward
+    share, agrees with the wrappers: the buffer sizes, the weight stream's
+    length, the stash's width and the column of every activation the plain
+    backward reads from it (on the card the libraries report their sizes
+    when loaded; here the header itself is read)."""
+    import re
+
+    from nerf_tpu_torch.ops import build
+
+    consts = {}
+    header = (build.CSRC / "fused_mlp.cuh").read_text()
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", header):
+        consts[name] = eval(expr, {"__builtins__": {}}, dict(consts))
+    wgmma = (build.CSRC / "fused_mlp_wgmma.cuh").read_text()
+    wpack = consts[re.search(r"constexpr int WPACK_SIZE = (\w+);", wgmma).group(1)]
+    W, EX = consts["W"], consts["EX"]
+
+    def s_h(layer):  # the header's s_h: the stash column of h_{layer+1}
+        return layer * W if layer < 4 else consts["S_EX"] + EX + (layer - 4) * W
+
+    assert (consts["WBUF_SIZE"], consts["BBUF_SIZE"], wpack) == (
+        fused_mlp.WBUF_SIZE, fused_mlp.BBUF_SIZE, fused_mlp.WPACK_SIZE)
+    assert consts["SLD"] == STASH_WIDTH
+    cols = {f"h{layer + 1}": s_h(layer) for layer in range(8)}
+    cols.update(feat=consts["S_FEAT"], v=consts["S_V"])
+    assert cols == fb.STASH_COLS
+
+
 def test_splits_fill_one_wave():
     """21 weight-gradient blocks per range: 6 ranges are 126 blocks, one wave
     on 132 SMs; small launches take no more ranges than 64-point blocks."""
@@ -154,7 +183,6 @@ def test_splits_fill_one_wave():
     assert fb.splits_for(65_536) == (6, 128)
     assert fb.splits_for(128) == (2, 2)
     assert fb.splits_for(0) == (1, 1)
-    assert fb.wmma_splits_for(196_608) == 64 and fb.wmma_splits_for(100) == 1
 
 
 @pytest.mark.parametrize("name", ["kernel", "no_stash", "no_gbuf", "stash_masks", "splits64"])

@@ -6,42 +6,38 @@ neither JAX nor nerf_tpu, so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances (as chip_smoke.py states them):
-- fused MLP, bf16, against the plain version and against the previous
-  (wmma) kernel: |k - p| / (1 + |p|) <= 5e-2 per element (at the sizes
-  that end the persistent grid's rounds raggedly, <= max(5e-2, 2x the
-  plain version summed in float64), as chip_smoke.py bounds it), its 99th
-  percentile <= 1e-3 over at least 4096 points and its 99.9th <= 1e-2 over
-  at least 65,536 (bf16 roundings that flip between two sum orders touch
-  ~1% of the outputs, so over a few hundred outputs the 99th percentile is
-  one of them); a point's output alone and inside a larger launch: exact;
-  one layer's product through the kernel's wgmma path against
-  torch.matmul in float32: within 2^-14 sum |a w| per element;
+- fused MLP, bf16, against the plain version: |k - p| / (1 + |p|) <= 5e-2
+  per element (at the sizes that end the persistent grid's rounds raggedly,
+  <= max(5e-2, 2x the plain version summed in float64), as chip_smoke.py
+  bounds it), its 99th percentile <= 1e-3 over at least 4096 points and its
+  99.9th <= 1e-2 over at least 65,536 (bf16 roundings that flip between two
+  sum orders touch ~1% of the outputs, so over a few hundred outputs the
+  99th percentile is one of them); a point's output alone and inside a
+  larger launch: exact; one layer's product through the kernel's wgmma path
+  against torch.matmul in float32: within 2^-14 sum |a w| per element;
 - integrate, float32: atol 2e-5 (sums of up to 192 terms in another order),
-  against the plain version and against the previous (warp-round) kernel;
-  a weight is exactly 0 wherever the plain version's transmittance is
-  below the ERT threshold beyond the band its float32 sums' order can move
-  it across (``integrate.past_the_cut``); a ray alone and inside a larger
-  launch: exact;
+  against the plain version; a weight is exactly 0 wherever the plain
+  version's transmittance is below the ERT threshold beyond the band its
+  float32 sums' order can move it across (``integrate.past_the_cut``); a ray
+  alone and inside a larger launch: exact;
 - a rendered image: PSNR >= 40 dB against the plain path;
-- fused backward (B2), bf16: every gradient leaf, dpts and ddirs within
-  1e-2 in relative norm of the plain version, of the plain backward run
-  on the kernel's own recomputed forward (each layer's gradient is rounded
-  to bf16, 2^-9 relative, before its products; random points and upstream
-  gradients spread the gradient over every point) and of the wmma
-  backward; its recomputed forward, two launches, its mask bits and a
-  prefix's input gradients inside a larger launch: exact; one weight-gradient
-  product against torch.matmul in float32: within 2^-14 sum |x g|;
-- hash-table row gather (B4): exact against the plain version and the
-  previous kernel (``gather_rows_simple``) for rows of 2 to 32 bytes (and
-  6, 12), bf16 and float32, at tails that are not whole vectors, on index
-  views only 4-byte aligned and on heavy duplicates; an out-of-range index
-  raises at the next synchronisation (in a process of its own: the trap
-  ends the process's CUDA context); its scatter-add: per element within
-  ``hash_gather.scatter_add_tolerance`` of the plain version (two float32
-  sums of the same terms in other orders, each rounded once to bf16; the
-  kernel's atomics make its order change from run to run), and of the
-  previous (one atomic per element) kernel, on index mixes that put runs of
-  equal indices across warp edges;
+- fused backward (B2), bf16: every gradient leaf, dpts and ddirs within 1e-2
+  in relative norm of the plain version, of the plain backward run on the
+  kernel's own recomputed forward (each layer's gradient is rounded to bf16,
+  2^-9 relative, before its products; random points and upstream gradients
+  spread the gradient over every point); its recomputed forward, two
+  launches, its mask bits and a prefix's input gradients inside a larger
+  launch: exact; one weight-gradient product against torch.matmul in
+  float32: within 2^-14 sum |x g|;
+- hash-table row gather (B4): exact against the plain version for rows of 2
+  to 32 bytes (and 6, 12), bf16 and float32, at tails that are not whole
+  vectors, on index views only 4-byte aligned and on heavy duplicates; an
+  out-of-range index raises at the next synchronisation (in a process of its
+  own: the trap ends the process's CUDA context); its scatter-add: per
+  element within ``hash_gather.scatter_add_tolerance`` of the plain version
+  (two float32 sums of the same terms in other orders, each rounded once to
+  bf16; the kernel's atomics make its order change from run to run), also on
+  index mixes that put runs of equal indices across warp edges;
 - the hash-grid model (random tables): encodings and a render through the
   gather kernel against its plain gather exact (the same rows, the same
   float32 arithmetic after them); one hash-grid train step through the kernels against
@@ -64,11 +60,8 @@ Tolerances (as chip_smoke.py states them):
   points' cotangents zeroed on both sides (float64 margins); a prefix
   alone and inside a larger launch, and two launches: exact; a train step
   through them against the plain float32 path with the same fine samples
-  and masking: loss within 1e-5 relative, every leaf as the backward;
-  B2-f32's weight gradients on the tensor cores (3xTF32) against its
-  previous fmaf ones, per leaf within the same bound (two float32 sums of
-  the same products in other orders, each within it of the plain
-  version); a bad unit table raises;
+  and masking: loss within 1e-5 relative, every leaf as the backward; a
+  bad unit table raises;
 - the evaluation slice: B1 on compacted [cap, 1, 3] batches as on the
   persistent tiles (largest error within max(5e-2, 2x the float64 plain
   version's)); a marched block through the kernels at PSNR >= 40 dB from
@@ -209,18 +202,6 @@ def test_fused_kernel_matches_plain_on_persistent_tiles(lego, cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", FUSED_SIZES)
-def test_fused_kernel_matches_the_wmma_kernel(lego, cuda, n):
-    """The wgmma forward against the previous (wmma) forward kernel."""
-    kp = {k: v.to(cuda) for k, v in fused_mlp.repack_params(lego["coarse"]).items()}
-    pts, d = _points(n, n + 1, cuda)
-    got = fused_mlp.fused_nerf_eval(kp, pts, d)
-    want = fused_mlp.fused_nerf_eval_wmma(kp, pts, d)
-    torch.cuda.synchronize()
-    _assert_fused_close(got, want)
-
-
-@pytest.mark.cuda
 def test_fused_kernel_rows_do_not_depend_on_the_launch(lego, cuda):
     """A point's output is the same bits whatever its tile, its block and the
     points around it: the first n points alone against the same points at
@@ -267,26 +248,6 @@ def test_fused_kernel_rejects_what_it_cannot_take(lego, cuda):
         fused_mlp.fused_nerf_eval(kp, pts.double(), d)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("ert", [0.0, 0.01])
-@pytest.mark.parametrize("act", ["relu", "softplus"])
-@pytest.mark.parametrize("n,s", [(1, 37), (1000, 64), (333, 192)])
-def test_integrate_kernel_matches_plain(cuda, ert, act, n, s):
-    rng = np.random.default_rng(n + s)
-    raw = rng.normal(size=(n, s, 4)).astype(np.float32)
-    raw[..., 3] *= 20.0
-    z = np.sort(rng.uniform(2, 6, (n, s)).astype(np.float32), axis=-1)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    raw, z, d = (torch.from_numpy(a).to(cuda) for a in (raw, z, d))
-    before = tint.integrate.launches
-    got = tint.integrate(raw, z, d, ert, True, act)
-    want = tint.integrate_plain(raw, z, d, ert, True, act)
-    torch.cuda.synchronize()
-    assert tint.integrate.launches == before + 1
-    for k in ("rgb_map", "depth_map", "acc_map", "weights"):
-        torch.testing.assert_close(got[k], want[k], atol=2e-5, rtol=0, msg=k)
-
-
 # (N, S): a lone ray, S not a multiple of 32, the hash-grid tiles and train
 # batches (1024 rays), a lego tile (8192), and rays longer than 256 samples
 # (the kernel's chunked loop)
@@ -294,8 +255,8 @@ INTEGRATE_SHAPES = [(1, 37), (1000, 64), (333, 192), (1024, 64), (1024, 192), (8
                     (77, 100), (5, 257), (64, 300), (3, 1000)]
 
 
-def _integrate_inputs(n, s, cuda):
-    rng = np.random.default_rng(n * 1000 + s)
+def _integrate_inputs(n, s, cuda, seed=None):
+    rng = np.random.default_rng(n * 1000 + s if seed is None else seed)
     raw = rng.normal(size=(n, s, 4)).astype(np.float32)
     raw[..., 3] *= 20.0
     z = np.sort(rng.uniform(2, 6, (n, s)).astype(np.float32), axis=-1)
@@ -306,16 +267,17 @@ def _integrate_inputs(n, s, cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ert", [0.0, 0.01])
 @pytest.mark.parametrize("act", ["relu", "softplus"])
-@pytest.mark.parametrize("n,s", INTEGRATE_SHAPES)
-def test_integrate_kernel_matches_plain_and_the_warp_kernel(cuda, ert, act, n, s):
-    raw, z, d = _integrate_inputs(n, s, cuda)
+@pytest.mark.parametrize("n,s,seed", [(n, s, n + s) for n, s in ((1, 37), (1000, 64), (333, 192))]
+                         + [(n, s, n * 1000 + s) for n, s in INTEGRATE_SHAPES])
+def test_integrate_kernel_matches_plain(cuda, ert, act, n, s, seed):
+    raw, z, d = _integrate_inputs(n, s, cuda, seed)
+    before = tint.integrate.launches
     got = tint.integrate(raw, z, d, ert, True, act)
     want = tint.integrate_plain(raw, z, d, ert, True, act)
-    old = tint.integrate_warp(raw, z, d, ert, True, act)
     torch.cuda.synchronize()
+    assert tint.integrate.launches == before + 1
     for k in ("rgb_map", "depth_map", "acc_map", "weights"):
         torch.testing.assert_close(got[k], want[k], atol=2e-5, rtol=0, msg=k)
-        torch.testing.assert_close(got[k], old[k], atol=2e-5, rtol=0, msg=k)
     if ert > 0:
         beyond, _ = tint.past_the_cut(tint.plain_transmittance(raw, z, d, act), ert)
         assert bool((got["weights"][beyond] == 0).all())
@@ -485,21 +447,6 @@ def test_wgmma_backward_matches_plain_on_its_stash(lego, cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 1000, 65553])
-def test_wgmma_backward_matches_the_wmma_backward(lego, cuda, n):
-    """The redesigned backward against the wmma one: every leaf, dpts and
-    ddirs within 1e-2 in relative norm (the two forwards sum in other orders,
-    so a ReLU mask or a bf16 rounding can flip between them)."""
-    kp, pts, d, g = _bwd_inputs(lego, cuda, n, 1)
-    got = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
-    want = fused_mlp_bwd.fused_nerf_bwd_wmma(kp, pts, d, g)
-    torch.cuda.synchronize()
-    for k in fused_mlp_bwd._GRAD_KEYS:
-        assert _rel_norm(got[0][k], want["kgrads"][k]) <= 1e-2, k
-    assert _rel_norm(got[1], want["dpts"]) <= 1e-2 and _rel_norm(got[2], want["ddirs"]) <= 1e-2
-
-
-@pytest.mark.cuda
 def test_wgmma_backward_is_deterministic_and_rowwise(lego, cuda):
     """Two launches give the same bits (the weight gradients sum their
     ranges in a fixed order); the dpts and ddirs of a prefix launched alone
@@ -623,11 +570,9 @@ def test_gather_kernel_matches_plain(cuda, n_rows, width, dtype, n, kind):
             idx.fill_(n_rows - 1)
     before = hash_gather.gather_rows.launches
     got = hash_gather.gather_rows(table, idx)
-    old = hash_gather.gather_rows_simple(table, idx)
     torch.cuda.synchronize()
     assert hash_gather.gather_rows.launches == before + 1
     assert torch.equal(got, hash_gather.gather_rows_plain(table, idx))
-    assert torch.equal(old, hash_gather.gather_rows_plain(table, idx))
 
 
 _OUT_OF_RANGE = """
@@ -647,7 +592,7 @@ except RuntimeError as e:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fn", ["gather_rows", "gather_rows_simple"])
+@pytest.mark.parametrize("fn", ["gather_rows"])
 @pytest.mark.parametrize("width,n,at,bad", [
     (2, 100_000, 50_000, 4096),  # 4-byte rows, inside a whole vector
     (2, 100_003, 100_001, 4096),  # 4-byte rows, in the last short vector
@@ -696,12 +641,10 @@ def test_scatter_add_kernel_on_index_mixes(cuda, n_rows, width, dtype, mix, n):
     cot = torch.randn((n, width), generator=gen, device=cuda).to(dtype)
     got = hash_gather.scatter_add_rows(idx, cot, n_rows)
     want = hash_gather.scatter_add_rows_plain(idx, cot, n_rows)
-    old = hash_gather.scatter_add_rows_atomic(idx, cot, n_rows)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (n_rows, width)
-    for ref in (want, old):
-        tol = hash_gather.scatter_add_tolerance(idx, cot, ref)
-        assert bool(((got.double() - ref.double()).abs() <= tol).all())
+    tol = hash_gather.scatter_add_tolerance(idx, cot, want)
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
 
 
 @pytest.mark.cuda
@@ -897,27 +840,6 @@ def test_f32_backward_matches_plain(lego, cuda, n):
     assert no_inputs[1] is None and no_inputs[2] is None
     for k in fused_mlp_bwd._GRAD_KEYS:  # the same launches, without the input gradients
         assert torch.equal(no_inputs[0][k], got[0][k]), k
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", F32_SIZES)
-def test_f32_tensor_core_dw_matches_fmaf(lego, cuda, n):
-    """The 3xTF32 weight gradients against the previous fmaf kernel's on the
-    same launches, the knife-edge points masked; only the former counts."""
-    kp = _kp32(lego, cuda)
-    pts, d = _points(n, n + 4, cuda)
-    g = torch.from_numpy(np.random.default_rng(n).normal(size=(n, 4)).astype(np.float32)).to(cuda)
-    g[fused_mlp_bwd.knife_edge_points(kp, pts, d)] = 0
-    before = fused_mlp_bwd.fused_nerf_bwd_f32.launches
-    old = fused_mlp_bwd.fused_nerf_bwd_f32_fmaf(kp, pts, d, g)
-    assert fused_mlp_bwd.fused_nerf_bwd_f32.launches == before
-    new = fused_mlp_bwd.fused_nerf_bwd(kp, pts, d, g)
-    assert fused_mlp_bwd.fused_nerf_bwd_f32.launches == before + 1
-    assert torch.equal(new[1], old["dpts"]) and torch.equal(new[2], old["ddirs"])
-    for k in fused_mlp_bwd._GRAD_KEYS:
-        want = old["kgrads"][k]
-        err = float((new[0][k] - want).abs().max())
-        assert err <= 2e-4 * float(want.abs().max()) + 1e-6, (k, err)
 
 
 @pytest.mark.cuda

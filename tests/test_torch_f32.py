@@ -11,8 +11,7 @@ The kernels run on the card only (``tests/test_torch_cuda.py``); here:
 - ``fused_mlp_bwd.knife_edge_points`` (the float64 margins that the card's
   float32 backward checks mask) zeroes 28 of tests/test_torch_fused_bwd.py's
   640 points, and a larger constant marks a superset: exact;
-- the backward's chunks and splits (the tensor-core weight gradients' and the
-  previous fmaf ones').
+- the backward's chunks and the tensor-core weight gradients' splits.
 """
 import os
 
@@ -150,13 +149,10 @@ def test_knife_edge_points_count():
     assert bool((hit[16] <= hit[32]).all() and (hit[32] <= hit[64]).all())
 
 
-@pytest.mark.parametrize("n,splits,fmaf_splits", [(1, 1, 1), (64 * 64, 8, 1), (64 * 128, 16, 2),
-                                                  (196_608, 33, 16), (1 << 18, 33, 16)])
-def test_f32_backward_splits(n, splits, fmaf_splits):
+@pytest.mark.parametrize("n,splits", [(1, 1), (64 * 64, 8), (64 * 128, 16), (196_608, 33),
+                                      (1 << 18, 33)])
+def test_f32_backward_splits(n, splits):
     """The tensor-core weight gradients' point ranges (at most 33, the
-    fastest count measured on the H100; at least 8 tiles a range), and the
-    previous fmaf weight gradients' (one per 64 tiles, at most 16), which the
-    comparisons launch."""
+    fastest count measured on the H100; at least 8 tiles a range)."""
     assert fused_mlp_bwd.f32_splits_for(n) == splits
-    assert fused_mlp_bwd.f32_fmaf_splits_for(n) == fmaf_splits
     assert fused_mlp_bwd.F32_CHUNK % fused_mlp_bwd.F32_TILE == 0

@@ -50,7 +50,7 @@ def test_gather_variants_apply_to_the_kernel_source(name):
     changes in csrc/hash_gather.cu, and changes only switches."""
     src = gather_variants.MAIN.read_text()
     text = variants.variant_source(gather_variants.MAIN, gather_variants.VARIANTS, name)
-    assert (text == src) == (name in ("kernel", "simple"))
+    assert (text == src) == (name == "kernel")
     assert text.count("constexpr") == src.count("constexpr")
     assert len(text.splitlines()) == len(src.splitlines())
 
